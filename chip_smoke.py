@@ -4,10 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain torch version on the card, drives the Cobra
-compile -> batch -> compiled-tier path at TPC-DS SF1 size (2,880,404 orders,
-the row count of SF1 ``store_sales``; 100,000 customers, SF1 ``customer``),
-checks its outputs, and times every kernel at the shapes that path gives it.
+each against its plain torch version on the card, and drives the port's
+main paths, each with the launch counts set to 0 just before it and read
+just after:
+
+  * the Cobra compile -> batch -> compiled-tier path at TPC-DS SF1 size
+    (2,880,404 orders, the row count of SF1 ``store_sales``; 100,000
+    customers, SF1 ``customer``): ``join_probe``, ``build_direct_table``,
+    ``segment_reduce``;
+  * LM serving through ``Server.generate`` at the full published widths and
+    depths of h2o-danube-1.8b (``flash_attention``) and rwkv6-3b
+    (``rwkv6_scan``), seeded random weights: 4 requests of 1,000 / 2,000 /
+    3,000 / 4,500 prompt tokens, 32 new tokens each.
+
+It checks the outputs, then times every kernel at the shapes those paths
+give it.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``; the two lines before it
@@ -32,6 +43,19 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
 TIMED_LAUNCHES = 50
 DEVICE = "cuda"
+BF16_TENSOR_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate
+
+# LM serving traffic: prompt lengths (the last past h2o-danube's 4,096
+# window), cache length and new tokens per request
+PROMPT_LENS = (1000, 2000, 3000, 4500)
+MAX_SEQ = 4608
+NEW_TOKENS = 32
+SCALE = "full"              # the published configuration, every layer
+RELATIONAL = ("join_probe", "build_direct_table", "segment_reduce")
+# bf16 weights and activations through every layer: decode logits against
+# a full forward of the same tokens (another matmul shape, another bf16
+# rounding of each projection) agree to this, on logits of magnitude ~4
+LOGIT_ATOL = 0.1
 
 
 def check(ok, what: str) -> None:
@@ -71,8 +95,9 @@ def phase_build() -> None:
     seconds = build.build_all()
     regs = {}
     for name, log in build.ptxas_report.items():
-        regs[name] = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
-                      if "Used" in ln and "registers" in ln]
+        regs[name] = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                      if ("Used" in ln and "registers" in ln)
+                      or ("spill" in ln and not ln.strip().startswith("0 bytes stack"))]
     emit({"phase": "build", "seconds": seconds, "sources": list(build.SOURCES),
           "ptxas": regs})
 
@@ -149,6 +174,127 @@ def phase_kernel_parity() -> None:
     emit({"phase": "kernel_parity", "cases": len(cases), "tolerance":
           {"join_probe": "atol=0", "segment_reduce": "exact on integers, "
            "rtol=1e-5 on random fp32 sums"}, "results": cases})
+
+
+# the reference's kernel sweeps (tests/test_kernels.py:23-32 and :70-76)
+ATTN_SWEEP = [
+    # (B, H, KV, Tq, Tk, hd, q dtype, kv dtype, causal, window, chunk)
+    (1, 2, 2, 64, 64, 32, "float32", "float32", True, None, None),
+    (2, 4, 2, 64, 64, 16, "float32", "float32", True, None, None),
+    (1, 2, 1, 128, 128, 32, "bfloat16", "bfloat16", True, None, None),
+    (1, 2, 2, 64, 64, 32, "float32", "float32", True, 16, None),
+    (1, 2, 2, 64, 64, 32, "float32", "float32", True, None, 32),
+    (1, 1, 1, 32, 128, 32, "float32", "float32", True, None, None),
+    (1, 2, 2, 64, 64, 64, "float32", "float32", False, None, None),
+    # the serving shapes: hd 80, decode over a ragged cache, ragged Tq = Tk,
+    # bf16 queries over the fp32 cache
+    (4, 32, 8, 1, 4531, 80, "bfloat16", "float32", True, 4096, None),
+    (2, 8, 2, 1, 77, 80, "float32", "float32", True, 64, None),
+    (1, 4, 4, 45, 45, 32, "float32", "float32", True, None, None),
+    (1, 32, 8, 300, 300, 80, "bfloat16", "float32", True, 128, None),
+    (1, 32, 8, 300, 300, 80, "bfloat16", "bfloat16", True, None, None),
+]
+RWKV_SWEEP = [
+    # (B, H, T, K, V, dtype, initial state, constant log decay)
+    (1, 2, 64, 16, 16, "float32", False, None),
+    (2, 3, 128, 32, 32, "float32", False, None),
+    (1, 2, 64, 16, 32, "float32", False, None),
+    (1, 2, 96, 16, 16, "bfloat16", False, None),
+    # ragged T, one-token decode from a state, the serving heads, and the
+    # extreme decay of tests/test_kernels.py:97-108
+    (2, 3, 45, 32, 32, "float32", True, None),
+    (4, 40, 1, 64, 64, "bfloat16", True, None),
+    (1, 40, 300, 64, 64, "bfloat16", True, None),
+    (1, 1, 64, 16, 16, "float32", False, -40.0),
+]
+# flash_attention against its plain version, by the output's (q's) type.
+# fp32: tests/test_kernels.py:47. bf16: both sides accumulate in fp32, so
+# the outputs differ by one bf16 rounding at most (2**-7 relative); rtol is
+# two bf16 ulps, atol covers the fp32 sums' order near zero. (The
+# reference's 2e-2 is as large as a typical output over 4,096 keys.)
+ATTN_TOL = {"float32": {"rtol": 2e-5, "atol": 2e-5},
+            "bfloat16": {"rtol": 1.6e-2, "atol": 1e-4}}
+RWKV_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # tests/test_kernels.py:90
+RWKV_STATE_TOL = 1e-3
+
+
+def attention_close(got, want, what: str) -> float:
+    """Holds a flash_attention output to its plain version's within
+    ``ATTN_TOL``; returns the largest absolute difference."""
+    import torch
+    sync()
+    tol = ATTN_TOL[_dt(got)]
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, msg=lambda m: f"{what}: {m}", **tol)
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def scan_close(got, want, what: str) -> float:
+    """Holds rwkv6_scan's (y, state) to the plain version's within
+    ``RWKV_TOL`` and ``RWKV_STATE_TOL``; returns the largest absolute
+    difference of either."""
+    import torch
+    sync()
+    (y, s), (y0, s0) = got, want
+    tol = RWKV_TOL[_dt(y)]
+    check(bool(torch.isfinite(y.float()).all() and torch.isfinite(s).all()),
+          f"{what}: non-finite output")
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"{what} y: {m}")
+    torch.testing.assert_close(s, s0, rtol=RWKV_STATE_TOL,
+                               atol=RWKV_STATE_TOL,
+                               msg=lambda m: f"{what} state: {m}")
+    return max(float((y.float() - y0.float()).abs().max()),
+               float((s - s0).abs().max()))
+
+
+def _dt(t) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def phase_lm_kernel_parity() -> None:
+    """flash_attention and rwkv6_scan against their plain versions."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rng = np.random.default_rng(12)
+
+    def on(shape, dt):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=DEVICE).to(dts[dt])
+
+    cases = []
+    for B, H, KV, Tq, Tk, hd, qd, kd, causal, window, chunk in ATTN_SWEEP:
+        q, k, v = on((B, H, Tq, hd), qd), on((B, KV, Tk, hd), kd), \
+            on((B, KV, Tk, hd), kd)
+        got = ops.attention(q, k, v, causal=causal, window=window, chunk=chunk)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       chunk=chunk)
+        shape = [B, H, KV, Tq, Tk, hd]
+        err = attention_close(got, want, f"flash_attention {shape} {qd}/{kd}")
+        cases.append({"kernel": "flash_attention", "shape": shape,
+                      "types": [qd, kd], "causal": causal, "window": window,
+                      "chunk": chunk, "tol": ATTN_TOL[qd], "max_abs_err": err})
+    for B, H, T, K, V, dt, with_state, decay in RWKV_SWEEP:
+        r, k, v = on((B, H, T, K), dt), on((B, H, T, K), dt), on((B, H, T, V), dt)
+        if decay is None:
+            w = -torch.exp(on((B, H, T, K), "float32") * 1.5)
+        else:
+            w = torch.full((B, H, T, K), decay, device=DEVICE)
+        u = on((H, K), "float32")
+        state = on((B, H, K, V), "float32") if with_state else None
+        got = ops.rwkv_scan(r, k, v, w, u, state=state)
+        want = ref.rwkv6_scan_ref(r, k, v, w, u, state=state)
+        shape = [B, H, T, K, V]
+        err = scan_close(got, want, f"rwkv6_scan {shape} {dt}")
+        cases.append({"kernel": "rwkv6_scan", "shape": shape,
+                      "type": dt, "state": with_state, "decay": decay,
+                      "tol": RWKV_TOL[dt], "max_abs_err": err})
+    emit({"phase": "lm_kernel_parity", "cases": len(cases),
+          "tolerance": {"flash_attention": ATTN_TOL, "rwkv6_scan": RWKV_TOL,
+                        "rwkv6_scan_state": RWKV_STATE_TOL},
+          "results": cases})
 
 
 def _outputs_equal(a, b) -> bool:
@@ -286,6 +432,247 @@ def phase_fold():
     emit({"phase": "fold", "tasks": N_TASKS, "roles": db.table("roles").nrows,
           "db_build_s": build_s, "runs": report})
     return db, lowered
+
+
+class _Capture:
+    """Wraps one ``ops`` entry point for the length of a ``with`` block and
+    keeps the first call's inputs and output (the prefill, layer 0) and the
+    last call's (the last decode step). It keeps references, not copies:
+    the cache slots a call reads are not written again after it. Only the
+    keyword arguments named in ``clone`` are copied, before the call: the
+    caller overwrites them in place later (the RWKV state)."""
+
+    def __init__(self, ops, name: str, clone=()):
+        self.ops, self.name, self.clone = ops, name, clone
+        self.first = self.last = None
+
+    def __enter__(self):
+        self.orig = getattr(self.ops, self.name)
+
+        def record(*args, **kwargs):
+            kept = {k: (v.clone() if k in self.clone and v is not None else v)
+                    for k, v in kwargs.items()}
+            out = self.orig(*args, **kwargs)
+            snap = {"args": list(args), "kwargs": kept, "out": out}
+            if self.first is None:
+                self.first = snap
+            else:
+                self.last = snap
+            return out
+
+        setattr(self.ops, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.orig)
+
+
+def _moved(snap, device):
+    """A captured call with its tensors copied to ``device``."""
+    import torch
+
+    def mv(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(mv(y) for y in x)
+        return x.to(device) if torch.is_tensor(x) else x
+    return {"args": mv(snap["args"]),
+            "kwargs": {k: mv(v) for k, v in snap["kwargs"].items()},
+            "out": mv(snap["out"])}
+
+
+def phase_serve(arch_name: str, kernel: str, entry: str):
+    """``Server.generate`` at the full published configuration: prefill of
+    the 4 right-padded prompts, then batched greedy decode. A first run
+    captures the kernel's inputs; its prefill's layer-0 output is held to
+    the plain version per request. A second run, with nothing wrapped, is
+    the timed main path: its launch count, and its decode logits of the
+    unpadded request against a full forward of that prompt plus its
+    generated tokens, are checked."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import ServeConfig, Server
+    from repro_torch.models import forward, make_caches
+    cfg = ServeConfig(arch=arch_name, scale=SCALE, max_batch=len(PROMPT_LENS),
+                      max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS, seed=0)
+    t0 = time.perf_counter()
+    server = Server(cfg, device=DEVICE)
+    sync()
+    init_s = time.perf_counter() - t0
+    arch = server.arch
+    n_params = sum(t.numel() for t in _leaves(server.params))
+    rng = np.random.default_rng(2024)
+    prompts = [rng.integers(0, arch.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+
+    want_launches = arch.n_layers * NEW_TOKENS
+
+    # a first run through the capture, which keeps the kernel's inputs and
+    # output at the prefill's layer 0 and at the last decode step
+    with _Capture(ops, entry,
+                  clone=("state",) if kernel == "rwkv6_scan" else ()) as cap:
+        ops.reset_launch_counts()
+        capture_outs = server.generate(prompts)
+        sync()
+        capture_launches = ops.launch_counts()[kernel]
+    check(capture_launches == want_launches,
+          f"{arch_name} (capture run): {kernel} launched {capture_launches} "
+          f"times, not {want_launches}")
+
+    # the prefill's layer-0 kernel output against the plain version, per
+    # request (the plain version's scores of one request fit the card)
+    prefill_errs = []
+    a = cap.first
+    for i in range(len(PROMPT_LENS)):
+        args = [x[i:i + 1] if torch.is_tensor(x) and x.ndim == 4 else x
+                for x in a["args"]]
+        kw = {k: (v[i:i + 1] if torch.is_tensor(v) and v.ndim == 4 else v)
+              for k, v in a["kwargs"].items()}
+        what = f"{arch_name} prefill layer 0, request {i}"
+        if kernel == "flash_attention":
+            prefill_errs.append(attention_close(
+                a["out"][i:i + 1], ref.flash_attention_ref(*args, **kw), what))
+        else:
+            prefill_errs.append(scan_close(
+                tuple(o[i:i + 1] for o in a["out"]),
+                ref.rwkv6_scan_ref(*args, **kw), what))
+    # the kernels line times the kernel at these inputs later: host copies,
+    # so the timed run below holds only the server's own memory
+    shapes = {"prefill": _moved(cap.first, "cpu"),
+              "decode": _moved(cap.last, "cpu")}
+    del cap, a, args, kw
+
+    # the main path, uninstrumented: launch counts from 0 just before it,
+    # read just after
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = server.generate(prompts)
+    sync()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches[kernel] == want_launches,
+          f"{arch_name}: {kernel} launched {launches[kernel]} times, "
+          f"not {want_launches}")
+    check([len(o) for o in outs] == [NEW_TOKENS] * len(PROMPT_LENS),
+          f"{arch_name}: wrong number of new tokens")
+
+    # decode logits of the unpadded (longest) request against one full
+    # forward of its prompt and generated tokens
+    j = int(np.argmax(PROMPT_LENS))
+    seq = np.concatenate([prompts[j], np.asarray(outs[j][:-1], np.int32)])
+    toks = torch.as_tensor(seq[None], device=DEVICE)
+    pos = torch.arange(seq.shape[0], dtype=torch.int32, device=DEVICE)[None]
+    with torch.no_grad():
+        full, _, _ = forward(server.params, arch, toks, pos)
+    plen = PROMPT_LENS[j]
+    full_steps = full[0, plen - 1:].float()
+    served = torch.stack([st[j] for st in server.step_logits]).float()
+    del full
+    decode_err = float((full_steps - served).abs().max())
+    check(bool(torch.isfinite(served).all()), f"{arch_name}: non-finite logits")
+    check(decode_err <= LOGIT_ATOL,
+          f"{arch_name}: decode logits differ from the full forward by "
+          f"{decode_err} > {LOGIT_ATOL}")
+    greedy_agree = float((full_steps.argmax(-1).cpu()
+                          == torch.as_tensor(outs[j])).float().mean())
+
+    # one prefill and one decode step again, device time against wall time
+    caches = make_caches(arch, len(PROMPT_LENS), MAX_SEQ, dtype=torch.float32,
+                         device=DEVICE)
+    tmax = max(PROMPT_LENS)
+    toks = torch.zeros((len(PROMPT_LENS), tmax), dtype=torch.int32,
+                       device=DEVICE)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p, device=DEVICE)
+    pos = torch.arange(tmax, dtype=torch.int32,
+                       device=DEVICE)[None].expand(len(PROMPT_LENS), tmax)
+    last = torch.as_tensor([o[-1] for o in outs], dtype=torch.int32,
+                           device=DEVICE)[:, None]
+    step_pos = torch.as_tensor([[n + NEW_TOKENS - 2] for n in PROMPT_LENS],
+                               dtype=torch.int32, device=DEVICE)
+    steps = {
+        "prefill": _step_ms(lambda: forward(server.params, arch, toks, pos,
+                                            caches=caches, cache_index=0)),
+        "decode": _step_ms(lambda: forward(server.params, arch, last,
+                                           step_pos, caches=caches,
+                                           cache_index=tmax + NEW_TOKENS - 2)),
+    }
+    del caches
+
+    t = server.timing
+    new_tokens = len(PROMPT_LENS) * t["decode_steps"]
+    emit({"phase": f"serve_{arch_name}", "arch": arch_name,
+          "layers": arch.n_layers, "d_model": arch.d_model,
+          "params": n_params, "init_s": init_s,
+          "prompt_lens": list(PROMPT_LENS), "max_seq": MAX_SEQ,
+          "new_tokens_per_request": NEW_TOKENS,
+          "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
+          "decode_tokens_per_s": new_tokens / t["decode_s"],
+          # one batch: every request gets its first token at the prefill's
+          # end and its last at the batch's end
+          "time_to_first_token_s": t["prefill_s"], "batch_wall_s": wall_s,
+          "peak_memory_gb": peak_gb, "launches": launches,
+          "capture_run_tokens_equal": capture_outs == outs,
+          "prefill_layer0_max_abs_err": prefill_errs,
+          "decode_vs_full_forward_max_abs_err": decode_err,
+          "decode_logit_atol": LOGIT_ATOL,
+          "greedy_tokens_equal_full_forward": greedy_agree,
+          "forward_step_ms": steps,
+          "sample": outs[j][:8]})
+    del server
+    torch.cuda.empty_cache()
+    return launches[kernel], shapes
+
+
+def _step_ms(fn, reps: int = 3):
+    """One model step's wall time and the device's busy time within it.
+
+    ``wall_ms``: host clock around the call and a synchronize (median of
+    ``reps``), as a caller sees it. ``device_busy_ms``: the union of the
+    intervals in which a ``torch.profiler`` trace of one more call saw the
+    card run a kernel, copy or fill (counted once however the trace nests
+    them). The idle share is the part of the wall time the card ran
+    nothing. Where the trace holds no device activity, both are None ("not
+    measured")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    wall = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy = busy_us / 1e3
+    w = statistics.median(wall)
+    return {"wall_ms": w, "device_busy_ms": busy or None,
+            "idle_share": max(0.0, 1.0 - busy / w) if busy else None,
+            "device_events": len(spans)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # --------------------------------------------------------------------------
@@ -433,6 +820,113 @@ def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
     return entries, hooks
 
 
+def _visible_keys(Tq: int, Tk: int, causal: bool, window, chunk):
+    """Per query row, the [lo, hi] range of keys the masks leave visible
+    (queries at the tail of the keys)."""
+    import numpy as np
+    qpos = np.arange(Tq) + (Tk - Tq)
+    lo = np.zeros(Tq, np.int64)
+    hi = np.full(Tq, Tk - 1, np.int64)
+    if causal:
+        hi = np.minimum(hi, qpos)
+    if window is not None:
+        lo = np.maximum(lo, qpos - window + 1)
+    if chunk is not None:
+        lo = np.maximum(lo, (qpos // chunk) * chunk)
+        hi = np.minimum(hi, (qpos // chunk) * chunk + chunk - 1)
+    return lo, hi
+
+
+def lm_kernel_entries(timer, attn_launches, attn_shapes, scan_launches,
+                      scan_shapes):
+    """flash_attention and rwkv6_scan at their serve-prefill and decode
+    shapes (inputs captured on the serve path), each held to its plain
+    version on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    entries = []
+
+    for call in ("prefill", "decode"):
+        snap = _moved(attn_shapes[call], DEVICE)
+        q, k, v = snap["args"]
+        kw = snap["kwargs"]
+        B, H, Tq, hd = q.shape
+        KV, Tk = k.shape[1], k.shape[2]
+        lo, hi = _visible_keys(Tq, Tk, kw["causal"], kw["window"], kw["chunk"])
+        pairs = B * H * int((hi - lo + 1).clip(min=0).sum())
+        n_keys = int(hi.max() - lo.min() + 1)
+        flops = 4 * hd * pairs
+        nbytes = 2 * B * H * Tq * hd * q.element_size() \
+            + 2 * B * KV * n_keys * hd * k.element_size()
+        bound_fp32 = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S)
+        bound_bf16 = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_OPS_PER_S)
+        # SDPA takes one type: the yardstick gets q in fp32 and the mask
+        kpos = torch.arange(Tk, device=DEVICE)[None, :]
+        mask = (kpos >= torch.as_tensor(lo, device=DEVICE)[:, None]) \
+            & (kpos <= torch.as_tensor(hi, device=DEVICE)[:, None])
+        qf = q.float()
+        kf, vf = k.float(), v.float()
+        if H != KV:   # the GQA broadcast, outside the timed call
+            kf = kf.repeat_interleave(H // KV, dim=1)
+            vf = vf.repeat_interleave(H // KV, dim=1)
+        fn = lambda: ops.attention(q, k, v, **kw)          # noqa: E731
+        plain = lambda: ref.flash_attention_ref(q, k, v, **kw)   # noqa: E731
+        entries.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:82",
+            "launches": attn_launches,
+            "max_abs_err": attention_close(fn(), plain(),
+                                           f"flash_attention at {call}"),
+            "ms": timer.ms(fn), "call_ms": timer.ms(fn, hold=False),
+            "plain_ms": timer.ms(plain, reps=10),
+            "bound_ms": bound_fp32 * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= flops / FP32_OPS_PER_S else "operations",
+            "bound_bf16_tensor_ms": bound_bf16 * 1e3,
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                qf, kf, vf, attn_mask=mask), reps=10),
+            "shape": {"call": call, "B": B, "H": H, "KV": KV, "Tq": Tq,
+                      "Tk": Tk, "hd": hd, "window": kw["window"],
+                      "types": [str(q.dtype), str(k.dtype)],
+                      "visible_pairs": pairs, "flops": flops,
+                      "bytes": nbytes}})
+        del qf, kf, vf, mask
+
+    for call in ("prefill", "decode"):
+        snap = _moved(scan_shapes[call], DEVICE)
+        r, k, v, w, u = snap["args"]
+        state = snap["kwargs"].get("state")
+        B, H, T, K = r.shape
+        V = v.shape[-1]
+        es = r.element_size()
+        nbytes = B * H * T * (2 * K + 2 * V) * es + B * H * T * K * 4 \
+            + H * K * 4 + B * H * K * V * 4 * (2 if state is not None else 1)
+        flops = B * H * T * (5 * K * V + 3 * K + 2 * V)
+        fn = lambda: ops.rwkv_scan(r, k, v, w, u, state=state)   # noqa: E731
+        plain = lambda: ref.rwkv6_scan_ref(r, k, v, w, u, state=state)  # noqa: E731
+        entries.append({
+            "name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan.py:79",
+            "launches": scan_launches,
+            "max_abs_err": scan_close(fn(), plain(), f"rwkv6_scan at {call}"),
+            "ms": timer.ms(fn), "call_ms": timer.ms(fn, hold=False),
+            "plain_ms": timer.ms(plain, reps=3 if T > 1 else 10),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / FP32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= flops / FP32_OPS_PER_S else "operations",
+            "bound_bf16_tensor_ms": max(nbytes / HBM_BYTES_PER_S,
+                                        flops / BF16_TENSOR_OPS_PER_S) * 1e3,
+            "library_ms": None,
+            "shape": {"call": call, "B": B, "H": H, "T": T, "K": K, "V": V,
+                      "type": str(r.dtype), "state": state is not None,
+                      "flops": flops, "bytes": nbytes}})
+    return entries
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     src = root / "src"
@@ -446,11 +940,15 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # no TF32 anywhere: the plain versions and yardsticks run in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
     smi = phase_device()
     phase_build()
     phase_kernel_parity()
+    phase_lm_kernel_parity()
 
     from repro_torch.kernels import ops
     from repro_torch.programs import make_orders_customer_db
@@ -460,13 +958,14 @@ def main() -> int:
     emit({"phase": "database", "orders": N_ORDERS, "customers": N_CUSTOMERS,
           "build_and_analyze_s": time.perf_counter() - t0})
 
-    # the main path: launch counts from 0 just before it, read just after
+    # the relational main path: launch counts from 0 just before it, read
+    # just after
     ops.reset_launch_counts()
     main_out = phase_main_path(order_db)
     nav_exe = phase_navigation(order_db, main_out)
     wilos_db, fold_lowered = phase_fold()
     launches = ops.launch_counts()
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in RELATIONAL if launches[k] == 0]
     check(not missing,
           f"kernels never launched on the main path: {missing}")
 
@@ -475,6 +974,19 @@ def main() -> int:
     emit({"phase": "hooks", **hooks,
           "note": "whole hook call: host keys/deltas to the card, kernel, "
                   "result back to the host"})
+    del order_db, wilos_db, nav_exe, fold_lowered
+
+    # the LM serving paths, each with its counts from 0 (inside phase_serve)
+    attn_launches, attn_shapes = phase_serve("h2o-danube-1.8b",
+                                             "flash_attention", "attention")
+    scan_launches, scan_shapes = phase_serve("rwkv6-3b", "rwkv6_scan",
+                                             "rwkv_scan")
+    missing = [k for k, n in (("flash_attention", attn_launches),
+                              ("rwkv6_scan", scan_launches)) if n == 0]
+    check(not missing,
+          f"kernels never launched on the serving paths: {missing}")
+    entries += lm_kernel_entries(_Timer(), attn_launches, attn_shapes,
+                                 scan_launches, scan_shapes)
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": entries})
     print(smi, flush=True)

@@ -1,4 +1,4 @@
-"""Carry a database across from host data: numpy tables in, a server out.
+"""Carry data across from the host: numpy tables or parameters in.
 
 ``database_from_numpy`` builds the port's :class:`DatabaseServer` from plain
 numpy tables, so any producer of columnar data — the reference package's
@@ -7,18 +7,27 @@ same rows::
 
     tables = {"orders": ([("o_id", "int64", 8), ...], {"o_id": ids, ...})}
     db = database_from_numpy(tables, device="cuda")
+
+``params_from_numpy`` turns a model's parameter tree, as numpy arrays with
+the layers stacked on a leading (L, ...) axis (the reference package's
+pytree layout), into the port's parameters, so the same weights give the
+same logits::
+
+    tree = jax.tree_util.tree_map(np.asarray, ref_params)
+    params = params_from_numpy(tree, arch, device="cuda")
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+from typing import Any, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .relational.database import DatabaseServer
-from .relational.table import Field, Schema, Table
+from .relational.table import Field, Schema, Table, resolve_device
 
-__all__ = ["database_from_numpy"]
+__all__ = ["database_from_numpy", "params_from_numpy"]
 
 FieldSpec = Tuple[str, str, int]   # (name, dtype, wire bytes)
 
@@ -38,3 +47,43 @@ def database_from_numpy(
                                          for f in schema.fields},
                           device=device)
     return DatabaseServer(out, stats_config=stats_config, device=device)
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """A host array as a tensor of the same element type on ``device``.
+    bfloat16 arrays (numpy has no such type; JAX hands out ml_dtypes'
+    ``bfloat16``) go across bit for bit as 16-bit words."""
+    a = np.ascontiguousarray(arr)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, Mapping):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _convert(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def params_from_numpy(tree: Mapping[str, Any], arch, device=None) -> dict:
+    """The reference's parameter tree (numpy leaves; ``"layers"`` stacked
+    on a leading axis of ``arch.n_layers``) -> the port's parameters,
+    ``{..., "layers": [per-layer dict] * n_layers}``, on ``device`` (the
+    card by default; ``device=None`` without CUDA raises). Every leaf keeps
+    its dtype."""
+    dev = resolve_device(device)
+    out = {}
+    for key, sub in tree.items():
+        if key == "layers":
+            out[key] = [_convert(_unstack(sub, i), dev)
+                        for i in range(arch.n_layers)]
+        else:
+            out[key] = _convert(sub, dev)
+    return out

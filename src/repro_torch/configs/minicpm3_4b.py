@@ -1,0 +1,12 @@
+"""minicpm3-4b — dense transformer with MLA (multi-head latent attention)
+[hf:openbmb/MiniCPM3-4B; hf]."""
+from ..models.arch import ArchConfig, register_arch
+
+CONFIG = register_arch(ArchConfig(
+    name="minicpm3-4b", family="dense",
+    n_layers=62, d_model=2560, n_heads=40, n_kv_heads=40,
+    d_ff=6400, vocab_size=73448, head_dim=64,
+    attn_kind="mla", rope_kind="rope",
+    q_lora_rank=768, kv_lora_rank=256, qk_rope_dim=32, qk_nope_dim=64,
+    v_head_dim=64,
+))

@@ -31,7 +31,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "check",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-SOURCES = ("join_probe", "segment_reduce")
+SOURCES = ("join_probe", "segment_reduce", "flash_attention", "rwkv6_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

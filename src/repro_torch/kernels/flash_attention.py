@@ -1,0 +1,140 @@
+"""Flash attention (forward): the CUDA kernel's wrapper.
+
+The attention of the LM serving path (``models/layers.attention_gqa``):
+online-softmax attention over q ``(B, H, Tq, hd)`` and k/v
+``(B, KV, Tk, hd)`` with GQA, causal / sliding-window / chunk-local masks
+and the query block at the tail of the keys. The kernel is in
+``csrc/flash_attention.cu`` (its header says what bounds it and how).
+
+The wrapper dispatches on the tensor's device: a CUDA tensor launches the
+kernel (and bumps ``flash_attention.launches``), a CPU tensor takes the
+plain version :func:`.ref.flash_attention_ref`. There is no fallback from
+one to the other. It casts nothing and copies nothing: q and k/v may be
+strided views (the (B, T, H, hd) projection, the (B, S, KV, hd) cache), in
+the type pairs (q, k/v) fp32/fp32, bf16/fp32 and bf16/bf16; another pair
+raises. The output has q's type and is a (B, H, Tq, hd) view of
+(B, Tq, H, hd) memory, so the caller's transpose back to (B, Tq, H·hd)
+needs no copy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import build, ref
+
+__all__ = ["flash_attention"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_SIGNATURES = {
+    "cobra_flash_attention": (
+        _P, _P, _P, _P, _P, _P,                  # q, k, v, out, partials
+        _I, _I, _I, _I, _I, _I,                  # B, H, KV, Tq, Tk, hd
+        _STRIDES, _STRIDES, _STRIDES, _STRIDES,  # q, k, v, out strides
+        _I, _I, _I, ctypes.c_float,              # causal, window, chunk, scale
+        _I, _I, _I, _I,                          # group, n_hgroups, bt, splits
+        _I, _I, _P),                             # dtypes, stream
+}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16))
+_ROWS = 64          # query rows per block (kRows in the kernel)
+_KEYS = 32          # keys per tile (kKeys)
+_MAX_HD = 96         # 32-dim slices per lane: HC = 1..3 in the kernel
+_MIN_TILES_PER_SPLIT = 4
+
+
+def _lib():
+    return build.load("flash_attention", _SIGNATURES)
+
+
+def _strides(t: torch.Tensor):
+    return (ctypes.c_longlong * 4)(*t.stride())
+
+
+def _splits(blocks: int, key_tiles: int, sms: int) -> int:
+    """Split the key range when the grid would leave SMs idle (decode)."""
+    if blocks >= 2 * sms:
+        return 1
+    return max(1, min(-(-2 * sms // blocks),
+                      key_tiles // _MIN_TILES_PER_SPLIT))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    chunk: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, H, Tq, hd), k/v (B, KV, Tk, hd) -> (B, H, Tq, hd) in q's type.
+    Queries sit at the tail of the keys (query i at position Tk - Tq + i)."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       chunk=chunk, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v must share a device")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: expected q (B,H,Tq,hd) and k/v "
+                         f"(B,KV,Tk,hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Tq, hd = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k/v {tuple(k.shape)} (H % KV must be 0)")
+    if not 0 < hd <= _MAX_HD:
+        raise ValueError(f"flash_attention: head dim {hd} outside 1..{_MAX_HD}")
+    if (q.dtype, k.dtype) not in _TYPE_PAIRS or v.dtype != k.dtype:
+        raise ValueError(f"flash_attention: unsupported types q {q.dtype}, "
+                         f"k {k.dtype}, v {v.dtype}; the kernel takes (q, k/v) "
+                         f"in {_TYPE_PAIRS}")
+    for name, n in (("window", window), ("chunk", chunk)):
+        if n is not None and n < 1:
+            raise ValueError(f"flash_attention: {name} must be >= 1, got {n}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    # (B, Tq, H, hd) memory seen as (B, H, Tq, hd)
+    out = torch.empty((B, Tq, H, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    rep = H // KV
+    group = min(rep, _ROWS)
+    n_hgroups = -(-rep // group)
+    bt = _ROWS // group
+    blocks = -(-Tq // bt) * B * KV * n_hgroups
+    span = Tk if window is None else min(Tk, window + Tq)
+    if chunk is not None:
+        span = min(span, chunk + Tq)
+    splits = _splits(blocks, -(-span // _KEYS),
+                     torch.cuda.get_device_properties(
+                         q.device).multi_processor_count)
+    part_acc = part_ml = None
+    if splits > 1:
+        rows = B * H * Tq
+        part_acc = torch.empty((splits, rows, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((splits, rows, 2), dtype=torch.float32,
+                              device=q.device)
+    with torch.cuda.device(q.device):
+        err = _lib().cobra_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            0 if part_acc is None else part_acc.data_ptr(),
+            0 if part_ml is None else part_ml.data_ptr(),
+            B, H, KV, Tq, Tk, hd,
+            _strides(q), _strides(k), _strides(v), _strides(out),
+            int(causal), window or 0, chunk or 0, float(scale),
+            group, n_hgroups, bt, splits,
+            _DTYPES[q.dtype], _DTYPES[k.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -5,19 +5,23 @@
     :func:`build_direct_table_ref` and :func:`slot_gather_ref` (the
     ``join_probe`` build and probe), :func:`join_probe_ref` (the
     searchsorted probe ``ops.equi_probe`` takes without a key space) and
-    :func:`segment_reduce_ref`;
+    :func:`segment_reduce_ref`, and for the LM kernels
+    :func:`flash_attention_ref` and :func:`rwkv6_scan_ref`;
   * numpy twins (``*_np``) — the ``"numpy"`` compiled backend, copied from
     the reference package.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
 
 __all__ = ["build_direct_table_ref", "slot_gather_ref", "join_probe_ref",
-           "segment_reduce_ref", "join_probe_np", "segment_reduce_np",
-           "SEGMENT_OPS"]
+           "segment_reduce_ref", "flash_attention_ref", "rwkv6_scan_ref",
+           "join_probe_np", "segment_reduce_np", "SEGMENT_OPS"]
 
 SEGMENT_OPS = ("sum", "count", "min", "max")
 
@@ -89,6 +93,61 @@ def segment_reduce_ref(values: torch.Tensor, segment_ids: torch.Tensor,
     out.scatter_reduce_(0, segs, vals, reduce="amin" if op == "min" else "amax",
                         include_self=True)
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        chunk: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,H,Tq,hd), k/v (B,KV,Tk,hd), GQA broadcast, fp32 softmax; the
+    queries sit at the tail of the keys. A row with every key masked gives
+    0 (softmax over -inf is NaN, set to 0), as the kernel's max(l, 1e-30)
+    does. Returns (B,H,Tq,hd) in q's type."""
+    B, H, Tq, hd = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q.reshape(B, KV, rep, Tq, hd).float()
+    scores = torch.einsum("bkrqh,bksh->bkrqs", qf, k.float()) * scale
+    qpos = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    m = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    if chunk is not None:
+        m &= torch.div(kpos, chunk, rounding_mode="floor") == \
+            torch.div(qpos, chunk, rounding_mode="floor")
+    scores.masked_fill_(~m, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    del scores
+    p.nan_to_num_(nan=0.0)
+    out = torch.einsum("bkrqs,bksh->bkrqh", p, v.float())
+    return out.reshape(B, H, Tq, hd).to(q.dtype)
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w_log: torch.Tensor, u: torch.Tensor,
+                   state: Optional[torch.Tensor] = None):
+    """The exact sequential WKV recurrence: r/k/w_log (B,H,T,K), v
+    (B,H,T,V), u (H,K), state (B,H,K,V) fp32 (zeros when None). Returns
+    (y (B,H,T,V) in r's type, final state fp32)."""
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    S = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device) \
+        if state is None else state.float()
+    uf = u.float()
+    ys = []
+    for t in range(T):
+        rt, kt, vt = (x[:, :, t].float() for x in (r, k, v))
+        bonus = (rt * uf * kt).sum(-1)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt, S) + bonus[..., None] * vt)
+        S = S * torch.exp(w_log[:, :, t].float())[..., None] \
+            + kt[..., :, None] * vt[..., None, :]
+    y = torch.stack(ys, dim=2) if ys else \
+        torch.zeros((B, H, 0, V), dtype=torch.float32, device=r.device)
+    return y.to(r.dtype), S
 
 
 def join_probe_np(probe_keys, table_keys):

@@ -1,0 +1,5 @@
+"""Launch layer: LM serving. Meshes, sharding policies and the training
+loop are not ported yet (ROADMAP A7)."""
+from . import serve
+
+__all__ = ["serve"]

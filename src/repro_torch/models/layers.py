@@ -1,0 +1,391 @@
+"""Model layers in PyTorch (params = dictionaries of tensors).
+
+The port of ``repro.models.layers`` for the two families the port serves:
+
+  * GQA attention with RoPE, optional sliding window (SWA) and chunked local
+    attention, through :func:`repro_torch.kernels.ops.attention` (the
+    hand-written CUDA kernel on the card, its plain version on the CPU);
+  * SwiGLU MLP;
+  * the RWKV6 time/channel mix, whose WKV recurrence goes through
+    :func:`repro_torch.kernels.ops.rwkv_scan`, and the chunked
+    :func:`decay_linear_attention` in its RWKV mode (the reference layer's
+    own scan, kept as a plain function);
+  * embeddings and the shared norm/linear primitives.
+
+Parameters keep the reference's dtypes: matrices bf16 by default, the
+norms, ``w0`` and ``u`` fp32. Random initialisation takes an explicit
+``torch.Generator`` (the reference's ``jax.random`` keys give other
+numbers; ``repro_torch.carry.params_from_numpy`` carries the reference's
+parameters across instead).
+
+MLA, MoE, Mamba2 and M-RoPE are not ported yet (ROADMAP A6): MLA and
+M-RoPE raise ``NotImplementedError`` here, the other families in
+``model.py``. Sharding policies (ROADMAP A7) are not either:
+:data:`NULL_POLICY` is the no-op the reference uses on one device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .arch import ArchConfig
+
+Params = Dict[str, Any]
+
+_LATER = "not ported yet (ROADMAP A6)"
+
+
+# --------------------------------------------------------------------------
+# Sharding policy hook
+# --------------------------------------------------------------------------
+
+class NullPolicy:
+    """No-op policy (single device / tests)."""
+
+    def cs(self, x, name: str):
+        return x
+
+
+NULL_POLICY = NullPolicy()
+
+
+# --------------------------------------------------------------------------
+# Primitives
+# --------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    y = x * torch.rsqrt(torch.mean(torch.square(x), dim=-1, keepdim=True) + eps)
+    return (y * w).to(dt)
+
+
+def init_rms(d: int, device=None) -> torch.Tensor:
+    return torch.ones((d,), dtype=torch.float32, device=device)
+
+
+def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
+               dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """Normal(0, 1/sqrt(fan_in)) (or ``scale``), drawn in fp32 from ``gen``
+    on ``device`` (the generator's own device when None), cast to dtype."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    device = gen.device if device is None else device
+    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (x * s).to(dtype)
+
+
+def act_fn(kind: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[kind]
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_freqs(hd_rot: int, theta: float = 1e4, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd_rot, 2, dtype=torch.float32,
+                                         device=device) / hd_rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
+               mrope_sections=None) -> torch.Tensor:
+    """x: (B, T, H, hd). positions: (B, T)."""
+    if mrope_sections is not None:
+        raise NotImplementedError(f"M-RoPE is {_LATER}")
+    B, T, H, hd = x.shape
+    half = hd // 2
+    freqs = rope_freqs(hd, theta, device=x.device)            # (half,)
+    ang = positions[..., None].float() * freqs                 # (B,T,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1f * cos - x2f * sin,
+                      x2f * cos + x1f * sin], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention (GQA + SWA/chunked)
+# --------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(f"MLA is {_LATER}")
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {
+        "wq": dense_init(gen, (d, H * hd)),
+        "wk": dense_init(gen, (d, KV * hd)),
+        "wv": dense_init(gen, (d, KV * hd)),
+        "wo": dense_init(gen, (H * hd, d)),
+    }
+
+
+def _attn_mask(Tq: int, Tk: int, q_offset: int, causal: bool,
+               window: Optional[int], chunk: Optional[int], device=None):
+    """(Tq, Tk) boolean mask. q position i attends k position j."""
+    qpos = q_offset + torch.arange(Tq, device=device)[:, None]
+    kpos = torch.arange(Tk, device=device)[None, :]
+    m = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    if chunk is not None:
+        m &= torch.div(kpos, chunk, rounding_mode="floor") == \
+            torch.div(qpos, chunk, rounding_mode="floor")
+    return m
+
+
+def sdpa(q, k, v, mask=None, scale=None, pol=NULL_POLICY):
+    """q: (B,Tq,H,hd) k/v: (B,Tk,KV,hd[v]); GQA broadcast; fp32 softmax;
+    masked scores -1e30. The plain reference of what attention_gqa computes
+    through the kernel (the reference layer calls this directly)."""
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qh = q.reshape(B, Tq, KV, rep, hd)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qh.float(), k.float()) * scale
+    if mask is not None:
+        scores = torch.where(mask[None, None, None], scores,
+                             torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkrqs,bskh->bqkrh", p, v.float())
+    return out.reshape(B, Tq, H, v.shape[-1]).to(q.dtype)
+
+
+def attention_gqa(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor, cache: Optional[Dict] = None,
+                  cache_index=None, pol=NULL_POLICY):
+    """Returns (out, cache). cache: {"k","v"} of (B, S_max, KV, hd).
+
+    Unlike the reference's functional ``dynamic_update_slice``, the cache
+    is updated IN PLACE (a copied full-width KV cache would be gigabytes a
+    step) and the same dictionary is returned. Attention then runs over the
+    cache sliced to the written slots ``[:cache_index + T]``: the kernel
+    puts the queries at the tail of the keys, so their positions are
+    ``cache_index + i``, and the causal / window masks equal the
+    reference's full-length masks with unwritten slots masked out."""
+    if cfg.rope_kind == "mrope":
+        raise NotImplementedError(f"M-RoPE is {_LATER}")
+    B, T, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ params["wq"]).view(B, T, H, hd)
+    k = (x @ params["wk"]).view(B, T, KV, hd)
+    v = (x @ params["wv"]).view(B, T, KV, hd)
+    if cfg.rope_kind == "rope":
+        q = apply_rope(q, positions)
+        k = apply_rope(k, positions)
+    if cache is not None:
+        idx = int(cache_index)
+        cache["k"][:, idx:idx + T].copy_(k)
+        cache["v"][:, idx:idx + T].copy_(v)
+        k = cache["k"][:, :idx + T]
+        v = cache["v"][:, :idx + T]
+    out = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=True, window=cfg.window, chunk=cfg.chunk_size)
+    y = out.transpose(1, 2).reshape(B, T, H * hd) @ params["wo"]
+    return y, cache
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, ff: int) -> Params:
+    return {"w_in": dense_init(gen, (d, 2 * ff)),   # fused gate+up
+            "w_out": dense_init(gen, (ff, d))}
+
+
+def mlp(params: Params, x: torch.Tensor, act: str = "silu", pol=NULL_POLICY):
+    gu = x @ params["w_in"]
+    g, u = torch.chunk(gu, 2, dim=-1)
+    h = act_fn(act)(g.float()).to(x.dtype) * u
+    return h @ params["w_out"]
+
+
+# --------------------------------------------------------------------------
+# Chunked decay linear attention (RWKV mode)
+# --------------------------------------------------------------------------
+
+def decay_linear_attention(r, kk, v, w_log, u=None, state=None,
+                           chunk: Optional[int] = None,
+                           scalar_decay: bool = False, pol=NULL_POLICY):
+    """The reference layer's chunked scan, RWKV mode (``u`` given)::
+
+        S_t = diag(exp(w_log_t)) S_{t-1} + k_t (x) v_t
+        y_t = r_t . S_{t-1} + (u * k_t . r_t) v_t
+
+    Shapes: r/k/w_log (B,H,T,K), v (B,H,T,V), state (B,H,K,V). Every
+    exponent is <= 0. The port's layers run :func:`ops.rwkv_scan` (the
+    sequential recurrence, a CUDA kernel on the card) instead; this plain
+    chunked form is what they are held to. Mamba2's mode (``u`` None,
+    ``scalar_decay``) is not ported yet."""
+    if u is None or scalar_decay:
+        raise NotImplementedError(f"Mamba2's decay mode is {_LATER}")
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    C = min(chunk if chunk is not None else 32, T)
+    T_p = -(-T // C) * C
+    if T_p != T:
+        pad = (0, 0, 0, T_p - T)
+        r, kk, v, w_log = (F.pad(a, pad) for a in (r, kk, v, w_log))
+    nC = T_p // C
+    rc = r.reshape(B, H, nC, C, K)
+    kc = kk.reshape(B, H, nC, C, K)
+    vc = v.reshape(B, H, nC, C, V)
+    wc = w_log.reshape(B, H, nC, C, K).float()
+    S = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device) \
+        if state is None else state.float()
+    tt = torch.arange(C, device=r.device)
+    mask = tt[:, None] > tt[None, :]
+    uu = (u[None, :, None, :] if u.ndim == 2 else u).float()
+    ys = []
+    for c in range(nC):
+        rf, kf, vf = rc[:, :, c].float(), kc[:, :, c].float(), vc[:, :, c].float()
+        wC = wc[:, :, c]
+        A = torch.cumsum(wC, dim=2)              # A_t = sum_{r<=t} w_r (<= 0)
+        A_end = A[:, :, -1:, :]
+        A_q = A - wC                             # A_{t-1}
+        y = torch.einsum("bhtk,bhkv->bhtv", rf * torch.exp(A_q), S)
+        diff = A_q[:, :, :, None, :] - A[:, :, None, :, :]    # (B,H,C,C,K)
+        D = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                  torch.full_like(diff, float("-inf"))))
+        y = y + torch.einsum("bhtk,bhtsk,bhsk,bhsv->bhtv", rf, D, kf, vf)
+        bonus = torch.einsum("bhtk,bhtk->bht", rf, uu * kf)
+        y = y + bonus[..., None] * vf
+        k_carry = kf * torch.exp(A_end - A)
+        S = S * torch.exp(A_end[:, :, 0, :])[..., None] \
+            + torch.einsum("bhsk,bhsv->bhkv", k_carry, vf)
+        ys.append(y)
+    y = torch.stack(ys, dim=2).reshape(B, H, T_p, V)[:, :, :T]
+    return y.to(r.dtype), S
+
+
+# --------------------------------------------------------------------------
+# RWKV6 block
+# --------------------------------------------------------------------------
+
+def init_rwkv6(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, H = cfg.d_model, cfg.n_heads
+    hd = d // H
+    dev = gen.device
+    lora = max(32, d // 16)
+
+    def uniform_mix(rows):   # token-shift mixes in [0.45, 0.55)
+        x = torch.rand((rows, d), generator=gen, dtype=torch.float32, device=dev)
+        return (x * 0.1 + 0.45).to(torch.bfloat16)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+
+    return {
+        "mix": uniform_mix(5),           # r, k, v, w, g
+        "wr": dense_init(gen, (d, d)),
+        "wk": dense_init(gen, (d, d)),
+        "wv": dense_init(gen, (d, d)),
+        "wg": dense_init(gen, (d, d)),
+        "wo": dense_init(gen, (d, d)),
+        "w0": normal((d,)) * 0.3 - 6.0,
+        "w_lora_a": dense_init(gen, (d, lora)),
+        "w_lora_b": dense_init(gen, (lora, d), scale=0.01),
+        "u": normal((H, hd)) * 0.3,
+        "ln_x": init_rms(d, device=dev),
+        # channel mix
+        "cm_mix": uniform_mix(2),
+        "cm_k": dense_init(gen, (d, cfg.d_ff)),
+        "cm_v": dense_init(gen, (cfg.d_ff, d)),
+        "cm_r": dense_init(gen, (d, d)),
+    }
+
+
+def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """shifted(x)[t] = x[t-1]; position 0 takes `last` (decode state)."""
+    return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def rwkv6_block(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                state: Optional[Dict] = None, pol=NULL_POLICY):
+    """Time-mix with data-dependent decay + channel-mix.
+    state: {"shift_t","shift_c": (B,d), "wkv": (B,H,hd,hd)}. Returns
+    (out, new_state); the caller writes new_state into its cache.
+
+    The token-shift states are read in the activations' type (a cache kept
+    in fp32 holds bf16 activations exactly), so the block's types do not
+    depend on the cache's: r/k/v reach the scan in the activations' type,
+    w_log, u and the WKV state in fp32."""
+    B, T, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+    if state is None:
+        state = {"shift_t": torch.zeros((B, d), dtype=x.dtype, device=x.device),
+                 "shift_c": torch.zeros((B, d), dtype=x.dtype, device=x.device),
+                 "wkv": None}
+    prev = _token_shift(x, state["shift_t"].to(x.dtype))
+    mix = params["mix"].to(x.dtype)
+    delta = prev - x
+    xr = x + delta * mix[0]
+    xk = x + delta * mix[1]
+    xv = x + delta * mix[2]
+    xw = x + delta * mix[3]
+    xg = x + delta * mix[4]
+    r = (xr @ params["wr"]).view(B, T, H, hd)
+    k = (xk @ params["wk"]).view(B, T, H, hd)
+    v = (xv @ params["wv"]).view(B, T, H, hd)
+    g = F.silu((xg @ params["wg"]).float())
+    # data-dependent decay: w = exp(-exp(w0 + lora(xw)))  in (0, 1)
+    dd = params["w0"] + (torch.tanh(xw.float() @ params["w_lora_a"].float())
+                         @ params["w_lora_b"].float())
+    w_log = -torch.exp(torch.clamp(dd, -12.0, 2.0)).view(B, T, H, hd)
+
+    y, wkv = ops.rwkv_scan(r.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), w_log.transpose(1, 2),
+                           params["u"], state=state["wkv"])
+    y = y.transpose(1, 2).reshape(B, T, d)
+    y = rms_norm(y, params["ln_x"], cfg.norm_eps) * g.to(x.dtype)
+    out_t = y @ params["wo"]
+
+    # channel mix
+    xc = x + out_t
+    prev_c = _token_shift(xc, state["shift_c"].to(xc.dtype))
+    cmix = params["cm_mix"].to(x.dtype)
+    delta_c = prev_c - xc
+    xk2 = xc + delta_c * cmix[0]
+    xr2 = xc + delta_c * cmix[1]
+    kk = torch.square(F.relu((xk2 @ params["cm_k"]).float()))
+    cm = kk.to(x.dtype) @ params["cm_v"]
+    rr = torch.sigmoid((xr2 @ params["cm_r"]).float()).to(x.dtype)
+    out = xc + rr * cm
+    new_state = {"shift_t": x[:, -1, :], "shift_c": xc[:, -1, :], "wkv": wkv}
+    return out, new_state
+
+
+# --------------------------------------------------------------------------
+# Embedding
+# --------------------------------------------------------------------------
+
+def init_embed(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    p = {"tok": dense_init(gen, (cfg.vocab_size, cfg.d_model), scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), scale=0.02)
+    return p
+
+
+def embed(params: Params, tokens: torch.Tensor, pol=NULL_POLICY) -> torch.Tensor:
+    tok = params["tok"]
+    return tok.index_select(0, tokens.reshape(-1).long()).view(
+        *tokens.shape, tok.shape[1])
+
+
+def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig,
+            pol=NULL_POLICY) -> torch.Tensor:
+    w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ w

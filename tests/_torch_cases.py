@@ -1,5 +1,6 @@
 """Kernel test cases shared by the port's CPU parity tests
-(``test_torch_kernels.py``) and its on-card tests (``test_torch_cuda.py``).
+(``test_torch_kernels.py``, ``test_torch_lm.py``) and its on-card tests
+(``test_torch_cuda.py``).
 
 Made with numpy from fixed seeds; imports neither jax nor the reference
 package, so the on-card tests run where only torch is installed.
@@ -57,3 +58,69 @@ def _segment_cases():
 
 
 SEGMENT_CASES = _segment_cases()
+
+
+# flash attention: the sweep of tests/test_kernels.py::ATTN_SWEEP
+# (B, H, KV, Tq, Tk, hd, dtype, causal, window, chunk)
+ATTN_SWEEP = [
+    (1, 2, 2, 64, 64, 32, "float32", True, None, None),
+    (2, 4, 2, 64, 64, 16, "float32", True, None, None),      # GQA
+    (1, 2, 1, 128, 128, 32, "bfloat16", True, None, None),   # bf16 + GQA
+    (1, 2, 2, 64, 64, 32, "float32", True, 16, None),        # SWA
+    (1, 2, 2, 64, 64, 32, "float32", True, None, 32),        # chunked local
+    (1, 1, 1, 32, 128, 32, "float32", True, None, None),     # decode-ish tail
+    (1, 2, 2, 64, 64, 64, "float32", False, None, None),     # bidirectional
+]
+
+# and the shapes the serving path adds: hd 80 (h2o-danube), decode with
+# Tq = 1 over a ragged Tk, ragged Tq = Tk, a masked-out tail
+ATTN_EXTRA = [
+    (1, 8, 2, 40, 40, 80, "float32", True, 24, None),        # hd 80, SWA
+    (2, 8, 2, 1, 77, 80, "float32", True, 64, None),         # decode, ragged Tk
+    (1, 4, 4, 45, 45, 32, "float32", True, None, None),      # ragged Tq = Tk
+    (1, 4, 2, 3, 100, 16, "float32", True, None, 32),        # chunk tail
+]
+
+# rwkv6 scan: the sweep of tests/test_kernels.py::RWKV_SWEEP
+# (B, H, T, K, V, chunk, dtype); chunk is the Pallas kernel's
+RWKV_SWEEP = [
+    (1, 2, 64, 16, 16, 16, "float32"),
+    (2, 3, 128, 32, 32, 32, "float32"),
+    (1, 2, 64, 16, 32, 64, "float32"),
+    (1, 2, 96, 16, 16, 32, "bfloat16"),
+]
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the reference's tolerances (tests/test_kernels.py:47 and :90)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+RWKV_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
+# the CUDA attention kernel against its plain version on the same inputs,
+# by the output's type: both sides accumulate in fp32, so a bf16 output
+# differs by one rounding at most (2**-7 relative); rtol is two bf16 ulps,
+# atol covers the fp32 sums' order near zero
+ATTN_KERNEL_TOL = {"float32": {"rtol": 2e-5, "atol": 2e-5},
+                   "bfloat16": {"rtol": 1.6e-2, "atol": 1e-4}}
+
+
+def attention_inputs(B, H, KV, Tq, Tk, hd, seed=0):
+    """q (B,H,Tq,hd), k/v (B,KV,Tk,hd) float32 numpy."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Tq, hd)).astype(np.float32),
+            rng.standard_normal((B, KV, Tk, hd)).astype(np.float32),
+            rng.standard_normal((B, KV, Tk, hd)).astype(np.float32))
+
+
+def rwkv_inputs(B, H, T, K, V, seed=0, decay=None):
+    """r, k (B,H,T,K), v (B,H,T,V), w_log (B,H,T,K) <= 0, u (H,K),
+    state (B,H,K,V): float32 numpy. ``decay`` fixes every w_log."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((B, H, T, K)).astype(np.float32)
+    k = rng.standard_normal((B, H, T, K)).astype(np.float32)
+    v = rng.standard_normal((B, H, T, V)).astype(np.float32)
+    if decay is None:
+        w = -np.exp(rng.standard_normal((B, H, T, K)) * 1.5).astype(np.float32)
+    else:
+        w = np.full((B, H, T, K), decay, np.float32)
+    u = rng.standard_normal((H, K)).astype(np.float32)
+    state = rng.standard_normal((B, H, K, V)).astype(np.float32)
+    return r, k, v, w, u, state

@@ -151,19 +151,28 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     keys = t32([0, 1, 2])
     ops.join_probe(keys, ops.build_direct_table(keys, 3))
     ops.segment_reduce(torch.ones(3), keys, 3)
+    x = torch.ones(1, 2, 3, 16)
+    ops.attention(x, x, x)
+    ops.rwkv_scan(x, x, x, -x, torch.zeros(2, 16))
     assert ops.launch_counts() == {"join_probe": 0, "build_direct_table": 0,
-                                   "segment_reduce": 0}
+                                   "segment_reduce": 0, "flash_attention": 0,
+                                   "rwkv6_scan": 0}
 
 
 @pytest.mark.parametrize("call", ["join_probe", "build_direct_table",
-                                  "segment_reduce"])
+                                  "segment_reduce", "attention", "rwkv_scan"])
 def test_other_devices_raise(call):
     meta = torch.empty(4, dtype=torch.int32, device="meta")
+    x = torch.empty(1, 2, 3, 16, device="meta")
     with pytest.raises(ValueError):
         if call == "join_probe":
             ops.join_probe(meta, meta)
         elif call == "build_direct_table":
             ops.build_direct_table(meta, 4)
+        elif call == "attention":
+            ops.attention(x, x, x)
+        elif call == "rwkv_scan":
+            ops.rwkv_scan(x, x, x, x, torch.empty(2, 16, device="meta"))
         else:
             ops.segment_reduce(meta.float(), meta, 4)
 

@@ -6,7 +6,9 @@
     has a reference module at the same relative path (``carry.py`` and the
     kernel build module excepted);
   * ``chip_smoke.py`` exits non-zero and prints no result where CUDA is
-    unavailable, and when it stands alone outside a checkout.
+    unavailable, and when it stands alone outside a checkout;
+  * the entry points run on the card unless the caller names the CPU: the
+    LM ``Server`` without a device raises where CUDA is unavailable.
 """
 
 import ast
@@ -71,6 +73,15 @@ def test_port_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_server_without_a_device_needs_cuda(monkeypatch):
+    from repro_torch.launch.serve import ServeConfig, Server
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Server(ServeConfig(arch="rwkv6-3b"))
+    assert Server(ServeConfig(arch="rwkv6-3b"), device="cpu").device.type \
+        == "cpu"
 
 
 def _run_smoke(cwd: Path):
