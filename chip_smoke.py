@@ -30,6 +30,7 @@ and nothing of the reference package ``repro``.
 
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -193,6 +194,25 @@ ATTN_SWEEP = [
     (1, 4, 4, 45, 45, 32, "float32", "float32", True, None, None),
     (1, 32, 8, 300, 300, 80, "bfloat16", "float32", True, 128, None),
     (1, 32, 8, 300, 300, 80, "bfloat16", "bfloat16", True, None, None),
+    # the tensor-core body: an fp32 cache that holds bf16 values (the
+    # serving path's; lo products skipped) and a random one (lo taken), Tq
+    # and Tk off the 16 / 64 tiles, hd 16 / 32 / 64, the chunk mask
+    (1, 32, 8, 1100, 1100, 80, "bfloat16", "bf16_in_float32", True, 1024, None),
+    (1, 32, 8, 1100, 1100, 80, "bfloat16", "float32", True, 1024, None),
+    (2, 8, 2, 77, 200, 16, "bfloat16", "float32", True, None, None),
+    (1, 4, 1, 130, 130, 32, "bfloat16", "bf16_in_float32", True, 100, None),
+    (1, 4, 2, 200, 333, 64, "bfloat16", "float32", True, None, None),
+    (1, 4, 2, 250, 250, 80, "bfloat16", "float32", True, None, 64),
+    (4, 32, 8, 1, 4531, 80, "bfloat16", "bf16_in_float32", True, 4096, None),
+    # head dims 45 (an odd tail, rows copied element by element) and 96 (the
+    # widest), and K/V one element into their buffers (rows off 16 bytes:
+    # element copies, "+1")
+    (1, 8, 2, 200, 333, 45, "bfloat16", "float32", True, None, None),
+    (2, 4, 1, 1, 600, 45, "bfloat16", "bfloat16", True, None, 256),
+    (1, 8, 2, 300, 300, 96, "bfloat16", "float32", True, 256, None),
+    (2, 8, 2, 1, 900, 96, "bfloat16", "bf16_in_float32", True, None, None),
+    (1, 8, 2, 300, 300, 80, "bfloat16", "float32+1", True, 128, None),
+    (2, 8, 2, 1, 700, 64, "bfloat16", "bfloat16+1", True, None, None),
 ]
 RWKV_SWEEP = [
     # (B, H, T, K, V, dtype, initial state, constant log decay)
@@ -206,6 +226,17 @@ RWKV_SWEEP = [
     (4, 40, 1, 64, 64, "bfloat16", True, None),
     (1, 40, 300, 64, 64, "bfloat16", True, None),
     (1, 1, 64, 16, 16, "float32", False, -40.0),
+    # the chunk-parallel scan: several 64-token chunks with a ragged tail,
+    # from zero and from a state, and the -40 decay across a chunk boundary
+    (1, 4, 200, 64, 64, "float32", False, None),
+    (1, 4, 200, 64, 64, "float32", True, None),
+    (1, 4, 4500, 64, 64, "bfloat16", False, None),
+    (1, 4, 4500, 64, 64, "bfloat16", True, None),
+    (1, 2, 130, 64, 64, "float32", True, -40.0),
+    # r/k/v one element into their buffers (rows off 16 bytes: element
+    # staging in phases A and C, full 32-token stages included)
+    (1, 4, 200, 16, 16, "float32+1", True, None),
+    (1, 4, 300, 64, 64, "bfloat16+1", False, None),
 ]
 # flash_attention against its plain version, by the output's (q's) type.
 # fp32: tests/test_kernels.py:47. bf16: both sides accumulate in fp32, so
@@ -261,8 +292,16 @@ def phase_lm_kernel_parity() -> None:
     rng = np.random.default_rng(12)
 
     def on(shape, dt):
-        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
-                               device=DEVICE).to(dts[dt])
+        """Seeded normals of ``shape``; "bf16_in_float32" is an fp32 tensor
+        of bf16 values (what the serving path's cache holds), a "+1" suffix
+        a view one element into its buffer."""
+        offset = int(dt.endswith("+1"))
+        dt = dt.removesuffix("+1")
+        x = torch.as_tensor(rng.standard_normal(
+            math.prod(shape) + offset).astype(np.float32), device=DEVICE)
+        if dt == "bf16_in_float32":
+            x = x.bfloat16().float()
+        return x.to(dts.get(dt, torch.float32))[offset:].view(shape)
 
     cases = []
     for B, H, KV, Tq, Tk, hd, qd, kd, causal, window, chunk in ATTN_SWEEP:
@@ -290,7 +329,7 @@ def phase_lm_kernel_parity() -> None:
         err = scan_close(got, want, f"rwkv6_scan {shape} {dt}")
         cases.append({"kernel": "rwkv6_scan", "shape": shape,
                       "type": dt, "state": with_state, "decay": decay,
-                      "tol": RWKV_TOL[dt], "max_abs_err": err})
+                      "tol": RWKV_TOL[_dt(got[0])], "max_abs_err": err})
     emit({"phase": "lm_kernel_parity", "cases": len(cases),
           "tolerance": {"flash_attention": ATTN_TOL, "rwkv6_scan": RWKV_TOL,
                         "rwkv6_scan_state": RWKV_STATE_TOL},
@@ -714,6 +753,28 @@ class _Timer:
         return statistics.median(times)
 
 
+def _kernel_ms(fn, reps: int = 5):
+    """Device time per call of each kernel that ``fn`` launches, by name,
+    from a ``torch.profiler`` trace of ``reps`` calls (None where the trace
+    holds no device activity: "not measured")."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key)
+            out[name] = e.self_device_time_total / reps / 1e3
+    return out or None
+
+
 def _host_ms(fn, reps: int = 10) -> float:
     fn()
     times = []
@@ -860,8 +921,11 @@ def lm_kernel_entries(timer, attn_launches, attn_shapes, scan_launches,
         nbytes = 2 * B * H * Tq * hd * q.element_size() \
             + 2 * B * KV * n_keys * hd * k.element_size()
         bound_fp32 = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S)
-        bound_bf16 = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_OPS_PER_S)
-        # SDPA takes one type: the yardstick gets q in fp32 and the mask
+        bound_tensor = max(nbytes / HBM_BYTES_PER_S,
+                           flops / BF16_TENSOR_OPS_PER_S)
+        # SDPA takes one type: the yardsticks get q and k/v in fp32, and in
+        # bf16 (which loses nothing of the serving cache's bf16 values), with
+        # the mask
         kpos = torch.arange(Tk, device=DEVICE)[None, :]
         mask = (kpos >= torch.as_tensor(lo, device=DEVICE)[:, None]) \
             & (kpos <= torch.as_tensor(hi, device=DEVICE)[:, None])
@@ -870,6 +934,7 @@ def lm_kernel_entries(timer, attn_launches, attn_shapes, scan_launches,
         if H != KV:   # the GQA broadcast, outside the timed call
             kf = kf.repeat_interleave(H // KV, dim=1)
             vf = vf.repeat_interleave(H // KV, dim=1)
+        qb, kb, vb = qf.bfloat16(), kf.bfloat16(), vf.bfloat16()
         fn = lambda: ops.attention(q, k, v, **kw)          # noqa: E731
         plain = lambda: ref.flash_attention_ref(q, k, v, **kw)   # noqa: E731
         entries.append({
@@ -880,19 +945,26 @@ def lm_kernel_entries(timer, attn_launches, attn_shapes, scan_launches,
             "max_abs_err": attention_close(fn(), plain(),
                                            f"flash_attention at {call}"),
             "ms": timer.ms(fn), "call_ms": timer.ms(fn, hold=False),
+            "kernel_ms": _kernel_ms(fn),
             "plain_ms": timer.ms(plain, reps=10),
-            "bound_ms": bound_fp32 * 1e3,
+            # the kernel's products run on the tensor cores (bf16 q)
+            "bound_ms": bound_tensor * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / FP32_OPS_PER_S else "operations",
-            "bound_bf16_tensor_ms": bound_bf16 * 1e3,
+            >= flops / BF16_TENSOR_OPS_PER_S else "operations",
+            "bound_tensor_ms": bound_tensor * 1e3,
+            "bound_fp32_ms": bound_fp32 * 1e3,
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                 qf, kf, vf, attn_mask=mask), reps=10),
+            "library_bf16_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                qb, kb, vb, attn_mask=mask), reps=10),
             "shape": {"call": call, "B": B, "H": H, "KV": KV, "Tq": Tq,
                       "Tk": Tk, "hd": hd, "window": kw["window"],
                       "types": [str(q.dtype), str(k.dtype)],
+                      "cache_bf16_exact": bool(torch.equal(
+                          k, k.bfloat16().to(k.dtype))),
                       "visible_pairs": pairs, "flops": flops,
                       "bytes": nbytes}})
-        del qf, kf, vf, mask
+        del qf, kf, vf, qb, kb, vb, mask
 
     for call in ("prefill", "decode"):
         snap = _moved(scan_shapes[call], DEVICE)
@@ -913,14 +985,16 @@ def lm_kernel_entries(timer, attn_launches, attn_shapes, scan_launches,
             "launches": scan_launches,
             "max_abs_err": scan_close(fn(), plain(), f"rwkv6_scan at {call}"),
             "ms": timer.ms(fn), "call_ms": timer.ms(fn, hold=False),
+            # the three phases at the prefill (A, B, C), C alone at decode
+            "kernel_ms": _kernel_ms(fn),
             "plain_ms": timer.ms(plain, reps=3 if T > 1 else 10),
             "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                             flops / FP32_OPS_PER_S) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
             >= flops / FP32_OPS_PER_S else "operations",
-            "bound_bf16_tensor_ms": max(nbytes / HBM_BYTES_PER_S,
-                                        flops / BF16_TENSOR_OPS_PER_S) * 1e3,
-            "library_ms": None,
+            "bound_tensor_ms": max(nbytes / HBM_BYTES_PER_S,
+                                   flops / BF16_TENSOR_OPS_PER_S) * 1e3,
+            "library_ms": None, "library_bf16_ms": None,
             "shape": {"call": call, "B": B, "H": H, "T": T, "K": K, "V": V,
                       "type": str(r.dtype), "state": state is not None,
                       "flops": flops, "bytes": nbytes}})

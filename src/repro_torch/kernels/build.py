@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "check",
-           "library_path"]
+           "library_path", "rows16"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -129,3 +129,13 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")
+
+
+def rows16(t) -> bool:
+    """Whether a 4-d tensor's rows (its last dimension) can be read 16 bytes
+    at a time: unit stride, the other strides and the width multiples of
+    16 bytes' elements, the base 16-byte aligned."""
+    per = 16 // t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and t.shape[3] % per == 0
+            and all(st % per == 0 for st in t.stride()[:3]))

@@ -4,7 +4,10 @@ The attention of the LM serving path (``models/layers.attention_gqa``):
 online-softmax attention over q ``(B, H, Tq, hd)`` and k/v
 ``(B, KV, Tk, hd)`` with GQA, causal / sliding-window / chunk-local masks
 and the query block at the tail of the keys. The kernel is in
-``csrc/flash_attention.cu`` (its header says what bounds it and how).
+``csrc/flash_attention.cu`` (its header says what bounds it and how). q's
+type picks its body: bf16 q takes the tensor cores, fp32 q the CUDA cores
+(a two-way bf16 split cannot meet fp32's tolerance); the block size
+follows the shape (8 warps for a long bf16 call, 4 for decode).
 
 The wrapper dispatches on the tensor's device: a CUDA tensor launches the
 kernel (and bumps ``flash_attention.launches``), a CPU tensor takes the
@@ -39,13 +42,13 @@ _SIGNATURES = {
         _STRIDES, _STRIDES, _STRIDES, _STRIDES,  # q, k, v, out strides
         _I, _I, _I, ctypes.c_float,              # causal, window, chunk, scale
         _I, _I, _I, _I,                          # group, n_hgroups, bt, splits
-        _I, _I, _P),                             # dtypes, stream
+        _I, _I, _I, _P),                         # dtypes, vec, stream
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                (torch.bfloat16, torch.bfloat16))
-_ROWS = 64          # query rows per block (kRows in the kernel)
-_KEYS = 32          # keys per tile (kKeys)
+# keys per tile, by q's type: kKeys (CUDA cores), kKeysTc (tensor cores)
+_KEYS = {torch.float32: 32, torch.bfloat16: 64}
 _MAX_HD = 96         # 32-dim slices per lane: HC = 1..3 in the kernel
 _MIN_TILES_PER_SPLIT = 4
 
@@ -56,6 +59,12 @@ def _lib():
 
 def _strides(t: torch.Tensor):
     return (ctypes.c_longlong * 4)(*t.stride())
+
+
+def _rows(q_dtype: torch.dtype, Tq: int) -> int:
+    """Query rows per block, 16 per warp: 8 warps for a long call on the
+    tensor cores (each K/V tile's staging serves twice the rows), else 4."""
+    return 128 if q_dtype == torch.bfloat16 and Tq >= 64 else 64
 
 
 def _splits(blocks: int, key_tiles: int, sms: int) -> int:
@@ -104,14 +113,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     rep = H // KV
-    group = min(rep, _ROWS)
+    block_rows = _rows(q.dtype, Tq)
+    group = min(rep, block_rows)
     n_hgroups = -(-rep // group)
-    bt = _ROWS // group
+    bt = block_rows // group
     blocks = -(-Tq // bt) * B * KV * n_hgroups
     span = Tk if window is None else min(Tk, window + Tq)
     if chunk is not None:
         span = min(span, chunk + Tq)
-    splits = _splits(blocks, -(-span // _KEYS),
+    splits = _splits(blocks, -(-span // _KEYS[q.dtype]),
                      torch.cuda.get_device_properties(
                          q.device).multi_processor_count)
     part_acc = part_ml = None
@@ -131,6 +141,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), window or 0, chunk or 0, float(scale),
             group, n_hgroups, bt, splits,
             _DTYPES[q.dtype], _DTYPES[k.dtype],
+            int(build.rows16(k) and build.rows16(v)),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1

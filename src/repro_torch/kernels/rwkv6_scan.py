@@ -7,7 +7,9 @@ The time-mix recurrence of the LM serving path (``models/layers.rwkv6_block``)::
 
 over r/k/w_log ``(B, H, T, K)``, v ``(B, H, T, V)``, u ``(H, K)``, from an
 initial state ``(B, H, K, V)`` (zeros when none is given). The kernel is in
-``csrc/rwkv6_scan.cu`` (its header says what bounds it and how).
+``csrc/rwkv6_scan.cu`` (its header says what bounds it and how): a
+chunk-parallel scan over chunks of :data:`CHUNK_LEN` tokens, whose scratch
+(each chunk's state and decay, fp32) the wrapper allocates.
 
 The wrapper dispatches on the tensor's device: a CUDA tensor launches the
 kernel (and bumps ``rwkv6_scan.launches``), a CPU tensor takes the plain
@@ -35,12 +37,20 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "cobra_rwkv6_scan": (
         _P, _P, _P, _P, _P, _P, _P, _P,          # r, k, v, w, u, s_in, y, s_out
+        _P, _P,                                  # chunk states L, decays D
         _I, _I, _I, _I, _I,                      # B, H, T, K, V
         _STRIDES, _STRIDES, _STRIDES, _STRIDES, _STRIDES,
-        _I, _P),                                 # dtype, stream
+        _I, _I, _P),                             # dtype, vec, stream
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KS = (16, 32, 64)
+_MAX_V = 256
+CHUNK_LEN = 64      # tokens per chunk (kChunkLen in the kernel)
+
+
+def n_chunks(T: int) -> int:
+    """Chunks of the scan: 1 (the token recurrence alone) for T <= CHUNK_LEN."""
+    return -(-T // CHUNK_LEN) if T > CHUNK_LEN else 1
 
 
 def _lib():
@@ -70,6 +80,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(w_log.shape)}, {tuple(v.shape)}")
     B, H, T, K = r.shape
     V = v.shape[-1]
+    if V > _MAX_V:
+        raise ValueError(f"rwkv6_scan: V = {V}; the kernel takes V <= {_MAX_V}")
     if K not in _KS:
         raise ValueError(f"rwkv6_scan: K = {K}; the kernel takes K in {_KS}")
     if tuple(u.shape) != (H, K):
@@ -88,13 +100,24 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("rwkv6_scan: u must be contiguous")
     y = torch.empty((B, T, H, V), dtype=r.dtype, device=r.device).transpose(1, 2)
     s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    nC = n_chunks(T)
+    chunk_states = chunk_decays = None
+    if nC > 1:
+        chunk_states = torch.empty((B, H, nC, K, V), dtype=torch.float32,
+                                   device=r.device)
+        chunk_decays = torch.empty((B, H, nC, K), dtype=torch.float32,
+                                   device=r.device)
     with torch.cuda.device(r.device):
         err = _lib().cobra_rwkv6_scan(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
             u.data_ptr(), 0 if state is None else state.data_ptr(),
-            y.data_ptr(), s_out.data_ptr(), B, H, T, K, V,
+            y.data_ptr(), s_out.data_ptr(),
+            0 if chunk_states is None else chunk_states.data_ptr(),
+            0 if chunk_decays is None else chunk_decays.data_ptr(),
+            B, H, T, K, V,
             _strides(r), _strides(k), _strides(v), _strides(w_log),
             _strides(y), _DTYPES[r.dtype],
+            int(all(build.rows16(t) for t in (r, k, v, w_log))),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "rwkv6_scan")
     rwkv6_scan.launches += 1

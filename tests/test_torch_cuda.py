@@ -18,12 +18,21 @@ runs where only torch is installed::
     strided views), within 2e-5 for fp32 outputs and, for bf16 outputs,
     one bf16 rounding (rtol 1.6e-2, atol 1e-4): both sides accumulate in
     fp32;
+  * the regimes of the tensor-core attention body: bf16 q over an fp32
+    cache that holds bf16 values (its lo products skipped) and over a
+    random fp32 cache (taken), Tq and Tk off the 16 / 64 tile sizes, hd
+    16 / 32 / 64 / 80, the chunk mask and decode, and the branches off the
+    serving shapes: hd 45 and 96 and K/V rows off 16 bytes;
   * ``rwkv6_scan``: the reference's scan sweep, from zero and from a given
     state, ragged T, one-token decode, extreme decay, within 1e-3 fp32 and
-    3e-2 bf16;
+    3e-2 bf16; and the chunk-parallel scan over several chunks with a
+    ragged tail, over rows off 16 bytes, and the -40 decay across a chunk
+    boundary;
   * a scaled ``Server.generate`` on the card against the same server on
     the CPU (fp32 parameters: the same tokens, logits within 1e-3).
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -34,11 +43,14 @@ from _torch_cases import (ATTN_EXTRA, ATTN_KERNEL_TOL, ATTN_SWEEP, PROBE_CASES,
                           attention_inputs, rwkv_inputs, t32)
 from repro_torch.api import CobraSession, OptimizerConfig, RuleSet
 from repro_torch.core import CostCatalog
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.launch import serve
 from repro_torch.programs import (make_orders_customer_db, make_p0,
                                   make_wilos_b, make_wilos_db, make_wilos_f)
 from repro_torch.relational import SLOW_REMOTE
+
+# the module (the package re-exports its function under the same name)
+rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
 
 pytestmark = pytest.mark.cuda
 
@@ -149,14 +161,26 @@ def test_compiled_tier_on_the_card_equals_the_cpu(cuda, name):
 # the LM kernels
 # --------------------------------------------------------------------------
 
-def _on(a, dev, dtype="float32"):
-    return torch.as_tensor(a).to(device=dev, dtype=TORCH_DTYPES[dtype])
+def _on(a, dev, dtype="float32", offset=False):
+    """``a`` on ``dev``; with ``offset``, as a view one element into its
+    buffer, so its rows are off 16 bytes."""
+    t = torch.as_tensor(a).to(device=dev, dtype=TORCH_DTYPES[dtype])
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert not build.rows16(view)
+    return view
 
 
 def _attention_case(cuda, B, H, KV, Tq, Tk, hd, q_dt, kv_dt, causal, window,
-                    chunk, seed=0):
+                    chunk, seed=0, bf16_cache=False, offset=False):
     q, k, v = attention_inputs(B, H, KV, Tq, Tk, hd, seed=seed)
-    q, k, v = _on(q, cuda, q_dt), _on(k, cuda, kv_dt), _on(v, cuda, kv_dt)
+    if bf16_cache:   # what the serving path writes: bf16 values in fp32
+        k, v = (torch.as_tensor(x).bfloat16().float() for x in (k, v))
+    q = _on(q, cuda, q_dt)
+    k, v = _on(k, cuda, kv_dt, offset), _on(v, cuda, kv_dt, offset)
     got = ops.attention(q, k, v, causal=causal, window=window, chunk=chunk)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    chunk=chunk)
@@ -181,6 +205,47 @@ def test_flash_attention_serving_types_and_splits(cuda, Tq, Tk):
                     4096, None, seed=Tk)
 
 
+# (B, H, KV, Tq, Tk, hd, kv dtype, bf16-exact cache, K/V rows off 16
+# bytes, window, chunk): bf16 q, the tensor-core body
+ATTN_TENSOR_CORE = [
+    (1, 8, 2, 1100, 1100, 80, "float32", True, False, 1024, None),
+    (1, 8, 2, 1100, 1100, 80, "float32", False, False, 1024, None),
+    (2, 8, 2, 77, 200, 16, "float32", False, False, None, None),
+    (1, 4, 1, 130, 130, 32, "float32", True, False, 100, None),
+    (1, 4, 2, 200, 333, 64, "float32", False, False, None, None),
+    (1, 8, 2, 300, 300, 80, "bfloat16", False, False, None, None),
+    (1, 4, 2, 250, 250, 80, "float32", False, False, None, 64),
+    (1, 4, 2, 150, 150, 64, "bfloat16", False, False, None, 48),
+    # hd 45 (three 16-deep slices, an odd tail, element copies) and 96
+    # (six slices), at prefill and decode
+    (1, 8, 2, 200, 333, 45, "float32", False, False, None, None),
+    (2, 4, 1, 1, 600, 45, "bfloat16", False, False, None, 256),
+    (1, 8, 2, 300, 300, 96, "float32", False, False, 256, None),
+    (2, 8, 2, 1, 900, 96, "float32", True, False, None, None),
+    # K/V one element into their buffers: element copies, in 8-warp blocks
+    # (two stages) and 4-warp ones
+    (1, 8, 2, 300, 300, 80, "float32", False, True, 128, None),
+    (1, 8, 2, 300, 300, 80, "float32", True, True, None, 64),
+    (2, 8, 2, 1, 700, 64, "bfloat16", False, True, None, None),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Tq,Tk,hd,kv_dt,exact,offset,window,chunk",
+                         ATTN_TENSOR_CORE)
+def test_flash_attention_tensor_core_regimes(cuda, B, H, KV, Tq, Tk, hd, kv_dt,
+                                             exact, offset, window, chunk):
+    _attention_case(cuda, B, H, KV, Tq, Tk, hd, "bfloat16", kv_dt, True,
+                    window, chunk, seed=Tq + hd, bf16_cache=exact,
+                    offset=offset)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_flash_attention_at_decode(cuda, exact):
+    # Tq 1 over a ragged cache past the window: the split-key path
+    _attention_case(cuda, 4, 32, 8, 1, 4531, 80, "bfloat16", "float32", True,
+                    4096, None, seed=1, bf16_cache=exact)
+
+
 def test_flash_attention_reads_strided_views(cuda):
     B, T, H, KV, hd, S = 2, 7, 8, 2, 80, 20
     rng = np.random.default_rng(0)
@@ -194,10 +259,12 @@ def test_flash_attention_reads_strided_views(cuda):
     assert got.transpose(1, 2).is_contiguous()
 
 
-def _scan_case(cuda, B, H, T, K, V, dt, with_state, seed=0, decay=None):
+def _scan_case(cuda, B, H, T, K, V, dt, with_state, seed=0, decay=None,
+               offset=False):
     r, k, v, w, u, s0 = rwkv_inputs(B, H, T, K, V, seed=seed, decay=decay)
-    args = [_on(r, cuda, dt), _on(k, cuda, dt), _on(v, cuda, dt),
-            _on(w, cuda), _on(u, cuda)]
+    args = [_on(r, cuda, dt, offset), _on(k, cuda, dt, offset),
+            _on(v, cuda, dt, offset), _on(w, cuda, offset=offset),
+            _on(u, cuda)]
     state = _on(s0, cuda) if with_state else None
     y, s = ops.rwkv_scan(*args, state=state)
     y0, s_ref = ref.rwkv6_scan_ref(*args, state=state)
@@ -224,6 +291,28 @@ def test_rwkv6_scan_serving_shapes(cuda, T, dt):
 
 def test_rwkv6_scan_extreme_decay_is_finite(cuda):
     y, s = _scan_case(cuda, 1, 1, 64, 16, 16, "float32", False, decay=-40.0)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("T,dt", [(200, "float32"), (200, "bfloat16"),
+                                  (4500, "bfloat16")])
+def test_rwkv6_scan_over_several_chunks(cuda, T, dt, with_state):
+    # several chunks of rwkv6_scan.CHUNK_LEN tokens with a ragged tail
+    assert rs.n_chunks(T) > 1 and T % rs.CHUNK_LEN
+    _scan_case(cuda, 1, 4, T, 64, 64, dt, with_state, seed=T)
+
+
+@pytest.mark.parametrize("T,K,dt,with_state", [(200, 16, "float32", True),
+                                                (300, 64, "bfloat16", False)])
+def test_rwkv6_scan_over_rows_off_16_bytes(cuda, T, K, dt, with_state):
+    # r/k/v/w one element into their buffers: element staging in phases A
+    # and C, full 32-token stages included
+    _scan_case(cuda, 1, 4, T, K, K, dt, with_state, seed=T, offset=True)
+
+
+def test_rwkv6_scan_extreme_decay_across_a_chunk_boundary(cuda):
+    y, s = _scan_case(cuda, 1, 2, 130, 64, 64, "float32", True, decay=-40.0)
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
 
 

@@ -11,6 +11,13 @@ and with the reference's numpy twins:
   * ``segment_reduce``: exactly on integer-valued inputs, and within
     ``rtol=1e-5`` on random fp32 sums (the sums run in another order).
 
+It also pins the premises the LM kernels' designs rest on: the serving
+path writes bf16 values into its fp32 KV cache (so ``flash_attention``'s
+tensor-core body may skip the lo half of its bf16 split), and the
+chunk-parallel scan of ``rwkv6_scan`` (its three phases written out in
+torch here) equals the sequential recurrence; and how the wrappers pick a
+body, a block size, 16-byte copies and a chunk count.
+
 ``tests/test_torch_cuda.py`` holds the CUDA kernels against the same plain
 versions on the card.
 """
@@ -197,3 +204,153 @@ def test_library_path_follows_source_and_flags():
     assert build.library_path("join_probe") == a          # stable
     for flag in ("arch=compute_90a,code=sm_90a", "-shared", "-O3"):
         assert flag in build.NVCC_FLAGS
+
+
+# --------------------------------------------------------------------------
+# the premises of the LM kernels' designs
+# --------------------------------------------------------------------------
+
+def _bf16_exact(t: torch.Tensor) -> bool:
+    return torch.equal(t, t.bfloat16().float())
+
+
+@pytest.mark.parametrize("T,idx", [(6, 0), (1, 6), (5, 9)])
+def test_attention_gqa_writes_bf16_values_into_the_fp32_cache(T, idx):
+    """flash_attention's tensor-core body skips the lo half of an fp32 K/V
+    tile when every element is a bf16 value: the serving path's cache
+    (bf16 projections and RoPE written into fp32) is one."""
+    from repro_torch.models import get_arch, layers
+    cfg = get_arch("h2o-danube-1.8b").scaled()
+    params = layers.init_attention(torch.Generator().manual_seed(T), cfg)
+    B, S = 2, 16
+    x = torch.as_tensor(np.random.default_rng(T).standard_normal(
+        (B, T, cfg.d_model)).astype(np.float32)).bfloat16()
+    pos = torch.arange(idx, idx + T, dtype=torch.int32)[None].expand(B, T)
+    cache = {n: torch.zeros((B, S, cfg.n_kv_heads, cfg.hd)) for n in "kv"}
+    layers.attention_gqa(params, x, cfg, pos, cache=cache, cache_index=idx)
+    for n in "kv":
+        written = cache[n][:, idx:idx + T]
+        assert cache[n].dtype == torch.float32 and written.abs().sum() > 0
+        assert _bf16_exact(cache[n])
+
+
+def test_forward_fills_every_layer_cache_with_bf16_values():
+    from repro_torch.models import forward, get_arch, init_params, make_caches
+    cfg = get_arch("h2o-danube-1.8b").scaled()
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32))
+    pos = torch.arange(12, dtype=torch.int32)[None].expand(2, 12)
+    caches = make_caches(cfg, 2, 16, dtype=torch.float32)
+    with torch.no_grad():
+        forward(params, cfg, toks, pos, caches=caches, cache_index=0)
+    assert caches["k"].abs().sum() > 0
+    assert _bf16_exact(caches["k"]) and _bf16_exact(caches["v"])
+
+
+def _chunked_scan(r, k, v, w, u, state, C):
+    """The CUDA kernel's chunk-parallel scan, phase by phase, in torch:
+    A (each chunk's state from zero and its decay, by suffix sums of w),
+    B (the carry across chunks), C (the token recurrence inside each chunk
+    from its entering state)."""
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    nC = -(-T // C) if T > C else 1
+    S0 = torch.zeros((B, H, K, V)) if state is None else state.float()
+    if nC == 1:
+        entering = [S0]
+        final = None
+    else:
+        L, D = [], []
+        for c in range(nC):                                     # phase A
+            kc, vc, wc = (x[:, :, c * C:(c + 1) * C] for x in (k, v, w))
+            # E_s = sum of w after s in the chunk (<= 0): the kernel's
+            # suffix sum, token by token from the chunk's end
+            after = torch.empty_like(wc)
+            acc = torch.zeros_like(wc[:, :, 0])
+            for t in range(wc.shape[2] - 1, -1, -1):
+                after[:, :, t] = acc
+                acc = acc + wc[:, :, t]
+            L.append(torch.einsum("bhtk,bhtv->bhkv",
+                                  kc * torch.exp(after), vc))
+            D.append(torch.exp(acc))
+        entering, S = [], S0                                    # phase B
+        for c in range(nC):
+            entering.append(S)
+            S = D[c][..., None] * S + L[c]
+        final = S
+    ys = []
+    for c in range(nC):                                         # phase C
+        S = entering[c]
+        for t in range(c * C, min(T, (c + 1) * C) if nC > 1 else T):
+            rt, kt, vt = r[:, :, t], k[:, :, t], v[:, :, t]
+            bonus = (rt * u * kt).sum(-1)
+            ys.append(torch.einsum("bhk,bhkv->bhv", rt, S)
+                      + bonus[..., None] * vt)
+            S = S * torch.exp(w[:, :, t])[..., None] \
+                + kt[..., :, None] * vt[..., None, :]
+        if nC == 1:
+            final = S
+    return torch.stack(ys, dim=2), final
+
+
+@pytest.mark.parametrize("T,C,with_state,decay", [
+    (200, 64, False, None), (200, 64, True, None),   # ragged tail
+    (64, 64, True, None),                            # one chunk: C alone
+    (1, 64, True, None),                             # decode
+    (130, 64, True, -40.0),                          # -40 across a boundary
+    (45, 16, False, None), (45, 16, True, -40.0),    # many short chunks
+])
+def test_chunk_parallel_scan_equals_the_recurrence(T, C, with_state, decay):
+    from _torch_cases import rwkv_inputs
+    rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    assert rs.n_chunks(T) == (-(-T // rs.CHUNK_LEN) if T > rs.CHUNK_LEN else 1)
+    r, k, v, w, u, s0 = (torch.as_tensor(a) for a in
+                         rwkv_inputs(1, 3, T, 16, 16, seed=T, decay=decay))
+    state = s0 if with_state else None
+    y, s = _chunked_scan(r, k, v, w, u, state, C)
+    y0, s_ref = ref.rwkv6_scan_ref(r, k, v, w, u, state=state)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, y0, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(s, s_ref, rtol=1e-3, atol=1e-3)
+    # and the reference package's own recurrence
+    y1, s1 = ref_ref.rwkv6_scan_ref(*(jnp.asarray(a.numpy()) for a in
+                                      (r, k, v, w, u)),
+                                    state=None if state is None
+                                    else jnp.asarray(state.numpy()))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y1), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s1), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,Tq,keys,rows", [
+    (torch.bfloat16, 4500, 64, 128),    # prefill: 8-warp blocks
+    (torch.bfloat16, 1, 64, 64),        # decode: 4-warp blocks
+    (torch.bfloat16, 63, 64, 64),
+    (torch.float32, 4500, 32, 64),      # fp32 q stays on the CUDA cores
+])
+def test_flash_attention_picks_its_tiles_by_type_and_shape(dtype, Tq, keys,
+                                                           rows):
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    assert fa._KEYS[dtype] == keys
+    assert fa._rows(dtype, Tq) == rows
+
+
+@pytest.mark.parametrize("shape,dtype,view,want", [
+    ((2, 10, 4, 64), torch.bfloat16, True, True),    # (B,T,H,K) seen as (B,H,T,K)
+    ((2, 10, 4, 64), torch.float32, True, True),
+    ((2, 3, 4, 6), torch.float32, False, False),     # rows of 24 bytes
+    ((2, 3, 5, 12), torch.bfloat16, False, False),   # strides off 16 bytes
+])
+def test_rows16_decides_the_16_byte_copies(shape, dtype, view, want):
+    t = torch.zeros(shape, dtype=dtype)
+    assert build.rows16(t.transpose(1, 2) if view else t) is want
+    if want:   # a unit-stride row is needed too
+        assert build.rows16(t.transpose(2, 3)) is False
+
+
+@pytest.mark.parametrize("T,chunks", [(1, 1), (64, 1), (65, 2), (200, 4),
+                                      (4500, 71)])
+def test_rwkv6_scan_chunk_count(T, chunks):
+    rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    assert rs.n_chunks(T) == chunks
