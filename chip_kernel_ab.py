@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Time the relational kernels of two checkouts in turns, on one NVIDIA GPU.
+
+    python3 chip_kernel_ab.py OTHER [--rounds R]
+
+OTHER is another checkout of the repository (for instance the parent
+commit, unpacked with ``git archive`` into a git-ignored directory). The
+script runs R rounds of four turns, OTHER, this checkout, this checkout,
+OTHER, each in a process of its own that imports ``repro_torch`` from that
+checkout's ``src`` and builds its kernels there. Every turn makes the same
+seeded inputs at the shapes of ``chip_smoke.py``'s main path (2,880,404 probe
+keys over 100,000 slots; 2,880,404 fold values), holds each kernel against
+its plain version (exact), and times ``join_probe``, ``build_direct_table``
+(over a permutation and over keys in row order) and ``segment_reduce`` at
+G = 1 and G = 600 with ``chip_smoke.py``'s timer
+(CUDA events, L2 flushed before each launch, median of 50), plus the
+device time of each kernel a call launches (``torch.profiler``). Prints one
+JSON line per turn, the card's name and power limit, and a summary line
+``{"ab": {kernel: {"other": [[ms, clean_ms, call_ms], ...], "this":
+[...]}}}`` (``clean_ms``: the same timer flushing by a read, so the L2 holds
+no dirty lines to write back; ``call_ms``: with the wrapper's host time). Exits
+non-zero if a turn fails. Imports nothing of JAX.
+"""
+
+import importlib
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+ENTRIES = ("join_probe", "build_direct_table", "build_direct_table_sorted",
+           "segment_reduce", "segment_reduce_g600")
+
+
+def turn(src: str) -> dict:
+    """One turn, in this process: the kernels of the checkout at ``src``."""
+    sys.path.insert(0, src)
+    sys.path.insert(1, str(HERE))
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops, ref
+    build.build_all(("join_probe", "segment_reduce"))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    m = cs.N_CUSTOMERS
+    keys = torch.as_tensor(rng.integers(0, m, cs.N_ORDERS).astype(np.int32),
+                           device=dev)
+    build_keys = torch.as_tensor(rng.permutation(m).astype(np.int32), device=dev)
+    sorted_keys = torch.arange(m, dtype=torch.int32, device=dev)
+    vals = torch.as_tensor(rng.integers(0, 5, cs.N_TASKS).astype(np.float32),
+                           device=dev)
+    segs = torch.zeros(cs.N_TASKS, dtype=torch.int32, device=dev)
+    segs600 = torch.as_tensor(rng.integers(0, 600, cs.N_TASKS).astype(np.int32),
+                              device=dev)
+    slots = ops.build_direct_table(build_keys, m)
+    calls = {
+        "join_probe": (lambda: ops.join_probe(keys, slots),
+                       lambda: ref.slot_gather_ref(keys, slots)),
+        "build_direct_table": (lambda: ops.build_direct_table(build_keys, m),
+                               lambda: ref.build_direct_table_ref(build_keys, m)),
+        # the main path's build side: surrogate keys in row order
+        "build_direct_table_sorted": (
+            lambda: ops.build_direct_table(sorted_keys, m),
+            lambda: ref.build_direct_table_ref(sorted_keys, m)),
+        "segment_reduce": (lambda: ops.segment_reduce(vals, segs, 1),
+                           lambda: ref.segment_reduce_ref(vals, segs, 1)),
+        "segment_reduce_g600": (lambda: ops.segment_reduce(vals, segs600, 600),
+                                lambda: ref.segment_reduce_ref(vals, segs600,
+                                                               600)),
+    }
+    jp = importlib.import_module("repro_torch.kernels.join_probe")
+    if hasattr(jp, "probe_cluster"):   # both probe routes at this shape
+        calls["join_probe_l2_route"] = (lambda: jp._probe(keys, slots, 0),
+                                        calls["join_probe"][1])
+    timer = cs._Timer()
+    out = {"src": src}
+    for name, (fn, plain) in calls.items():
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, want), f"{src}: {name} differs from plain")
+        out[name] = {"ms": timer.ms(fn), "clean_ms": timer.ms(fn, clean=True),
+                     "call_ms": timer.ms(fn, hold=False),
+                     "kernel_ms": cs._kernel_ms(fn)}
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
+        print(json.dumps(turn(sys.argv[2])), flush=True)
+        return 0
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = Path(sys.argv[1]).resolve()
+    rounds = int(sys.argv[sys.argv.index("--rounds") + 1]) \
+        if "--rounds" in sys.argv else 1
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_kernel_ab.py: CUDA is not available", file=sys.stderr)
+        return 2
+    ab = {k: {"other": [], "this": []} for k in ENTRIES}
+    for _ in range(rounds):
+        for label, root in (("other", other), ("this", HERE), ("this", HERE),
+                            ("other", other)):
+            res = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--turn",
+                 str(root / "src")], capture_output=True, text=True,
+                timeout=900, env={**os.environ, "PYTHONPATH": ""})
+            if res.returncode != 0:
+                print(res.stdout + res.stderr, file=sys.stderr)
+                return 1
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+            print(json.dumps({"turn": label, **line}), flush=True)
+            for k in ENTRIES:
+                ab[k][label].append([line[k]["ms"], line[k]["clean_ms"],
+                                     line[k]["call_ms"]])
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    print(json.dumps({"ab": ab}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -172,6 +172,66 @@ def phase_kernel_parity() -> None:
                       "g": groups, "rtol": 1e-5,
                       "max_abs_err": float((got - plain).abs().max())
                       if groups else 0.0})
+    # the edges of the 16-byte paths: N = 4k + 1, 2, 3 and bases off 16
+    # bytes (a view one element into its buffer), on the scalar route the
+    # same rows in the same order: the same bits as the aligned call
+    def view(a, offset):
+        a = np.asarray(a)
+        return torch.as_tensor(np.concatenate([np.zeros(offset, a.dtype), a]),
+                               device=dev)[offset:]
+
+    for n in (N_ORDERS + 1, N_ORDERS + 2, N_ORDERS + 3):
+        for offset in (0, 1):
+            probe = rng.integers(-3, N_CUSTOMERS + 3, size=n).astype(np.int32)
+            keys = rng.permutation(N_CUSTOMERS).astype(np.int32)
+            slots = ops.build_direct_table(view(keys, offset), N_CUSTOMERS)
+            got = ops.join_probe(view(probe, offset), slots)
+            sync()
+            check(np.array_equal(got.cpu().numpy(), ref.join_probe_np(probe, keys)),
+                  f"join_probe n={n} offset={offset} vs numpy")
+            cases.append({"kernel": "join_probe", "case": f"ragged_view+{offset}",
+                          "n": n, "m": N_CUSTOMERS, "max_abs_err": 0})
+        for groups in (1, 7):
+            segs = rng.integers(-1, groups + 1, size=n).astype(np.int32)
+            ints = rng.integers(-50, 50, size=n).astype(np.float32)
+            floats = rng.uniform(0, 1, size=n).astype(np.float32)
+            for op in ref.SEGMENT_OPS:
+                plain = ref.segment_reduce_ref(view(ints, 0), view(segs, 0),
+                                               groups, op=op)
+                for offset in (0, 1):
+                    got = ops.segment_reduce(view(ints, offset),
+                                             view(segs, offset), groups, op=op)
+                    sync()
+                    check(torch.equal(got, plain),
+                          f"segment_reduce {op} n={n} G={groups} +{offset}")
+            cases.append({"kernel": "segment_reduce", "case": "int_ops_ragged_view",
+                          "n": n, "g": groups, "max_abs_err": 0})
+            runs = [ops.segment_reduce(view(floats, offset), view(segs, offset),
+                                       groups) for offset in (0, 0, 0, 1)]
+            plain = ref.segment_reduce_ref(view(floats, 0), view(segs, 0), groups)
+            sync()
+            # three calls back to back and the view: bit-identical
+            check(all(torch.equal(r, runs[0]) for r in runs),
+                  f"segment_reduce n={n} G={groups}: sums differ between calls")
+            torch.testing.assert_close(runs[0], plain, rtol=1e-5, atol=0)
+            cases.append({"kernel": "segment_reduce", "case": "float_sum_repeat_view",
+                          "n": n, "g": groups, "rtol": 1e-5, "bit_identical": True,
+                          "max_abs_err": float((runs[0] - plain).abs().max())})
+    # two streams in turn, each with its own ticket counter
+    vals = torch.as_tensor(rng.uniform(-1, 1, N_TASKS).astype(np.float32),
+                           device=dev)
+    zeros = torch.zeros(N_TASKS, dtype=torch.int32, device=dev)
+    sync()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    sums = []
+    for i in range(4):
+        with torch.cuda.stream(streams[i % 2]):
+            sums.append(ops.segment_reduce(vals, zeros, 1))
+    sync()
+    check(all(torch.equal(x, sums[0]) for x in sums),
+          "segment_reduce: sums differ between streams")
+    cases.append({"kernel": "segment_reduce", "case": "two_streams", "n": N_TASKS,
+                  "g": 1, "bit_identical": True, "max_abs_err": 0.0})
     emit({"phase": "kernel_parity", "cases": len(cases), "tolerance":
           {"join_probe": "atol=0", "segment_reduce": "exact on integers, "
            "rtol=1e-5 on random fp32 sums"}, "results": cases})
@@ -734,13 +794,21 @@ class _Timer:
         import torch
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
 
-    def ms(self, fn, hold: bool = True, reps: int = TIMED_LAUNCHES) -> float:
+    def ms(self, fn, hold: bool = True, reps: int = TIMED_LAUNCHES,
+           clean: bool = False) -> float:
+        """``clean``: flush by reading the 128 MB buffer, not writing it, so
+        the L2 holds clean lines and the call's misses write nothing back
+        (the write flush leaves ~50 MB of dirty lines, whose write-back a
+        streaming call pays for as it evicts them)."""
         import torch
         for _ in range(3):
             fn()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            if clean:
+                torch.amax(self.flush)
+            else:
+                self.flush.zero_()
             if hold:
                 torch.cuda._sleep(self.HOST_LEAD_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
@@ -775,22 +843,12 @@ def _kernel_ms(fn, reps: int = 5):
     return out or None
 
 
-def _host_ms(fn, reps: int = 10) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
     import numpy as np
     import torch
     from repro_torch.compiled import exec as cexec
     from repro_torch.kernels import ops, ref
+    from repro_torch.relational.table import host_to_device
     timer = _Timer()
     dev = torch.device(DEVICE)
     orders, customer = order_db.table("orders"), order_db.table("customer")
@@ -800,12 +858,15 @@ def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
     slots = ops.build_direct_table(build_keys, m)
     rows = torch.arange(build_keys.shape[0], dtype=torch.int32, device=dev)
     n = keys.shape[0]
+    found = torch.empty_like(keys)
     # the W_F fold's deltas: t_state per task, as the loop walk hands them
     fold_cl = next(iter(fold_lowered._loops.values()))
     deltas_np = wilos_db.table("tasks").host("t_state").astype(np.float64)
     deltas = torch.as_tensor(deltas_np.astype(np.float32), device=dev)
     n_fold = deltas.shape[0]
     segs = torch.zeros(n_fold, dtype=torch.int32, device=dev)
+    segs600 = torch.as_tensor(np.random.default_rng(600).integers(
+        0, 600, n_fold).astype(np.int32), device=dev)
     sync()
 
     def err(a, b):
@@ -825,7 +886,11 @@ def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
         "launches": launches["join_probe"],
         "max_abs_err": err(ops.join_probe(keys, slots), ref.slot_gather_ref(keys, slots)),
         "ms": timer.ms(lambda: ops.join_probe(keys, slots)),
+        "clean_ms": timer.ms(lambda: ops.join_probe(keys, slots), clean=True),
         "call_ms": timer.ms(lambda: ops.join_probe(keys, slots), hold=False),
+        "kernel_ms": _kernel_ms(lambda: ops.join_probe(keys, slots)),
+        # the probe's bytes with no gathers: a copy of the keys
+        "copy_ms": timer.ms(lambda: found.copy_(keys)),
         "plain_ms": timer.ms(lambda: ref.slot_gather_ref(keys, slots)),
         "bound_ms": (n * 4 + n * 4 + m * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
@@ -840,8 +905,11 @@ def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
         "max_abs_err": err(ops.build_direct_table(build_keys, m),
                            ref.build_direct_table_ref(build_keys, m)),
         "ms": timer.ms(lambda: ops.build_direct_table(build_keys, m)),
+        "clean_ms": timer.ms(lambda: ops.build_direct_table(build_keys, m),
+                             clean=True),
         "call_ms": timer.ms(lambda: ops.build_direct_table(build_keys, m),
                             hold=False),
+        "kernel_ms": _kernel_ms(lambda: ops.build_direct_table(build_keys, m)),
         "plain_ms": timer.ms(lambda: ref.build_direct_table_ref(build_keys, m)),
         "bound_ms": (build_keys.shape[0] * 4 + m * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
@@ -858,8 +926,11 @@ def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
         "max_abs_err": err(ops.segment_reduce(deltas, segs, 1),
                            ref.segment_reduce_ref(deltas, segs, 1)),
         "ms": timer.ms(lambda: ops.segment_reduce(deltas, segs, 1)),
+        "clean_ms": timer.ms(lambda: ops.segment_reduce(deltas, segs, 1),
+                             clean=True),
         "call_ms": timer.ms(lambda: ops.segment_reduce(deltas, segs, 1),
                             hold=False),
+        "kernel_ms": _kernel_ms(lambda: ops.segment_reduce(deltas, segs, 1)),
         "plain_ms": timer.ms(lambda: ref.segment_reduce_ref(deltas, segs, 1)),
         "bound_ms": max((n_fold * 4 + n_fold * 4 + 4) / HBM_BYTES_PER_S,
                         n_fold / FP32_OPS_PER_S) * 1e3,
@@ -867,18 +938,62 @@ def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
         "library_ms": timer.ms(lambda: torch.zeros(1, dtype=torch.float32,
                                                    device=dev).index_add_(
             0, segs.long(), deltas)),
+        # at G = 1 the same answer as one torch.sum of the values: a floor
+        # that reads half the bytes (no segment ids)
+        "library_sum_ms": timer.ms(lambda: torch.sum(deltas)),
+        # the tiled route at G = 600 over the same values
+        "g600_ms": timer.ms(lambda: ops.segment_reduce(deltas, segs600, 600)),
+        "g600_max_abs_err": err(ops.segment_reduce(deltas, segs600, 600),
+                                ref.segment_reduce_ref(deltas, segs600, 600)),
         "shape": {"n": n_fold, "g": 1}})
-    # the whole hook calls, host numpy in and out as the compiled tier runs them
+    # the whole hook calls, host numpy in and out as the compiled tier runs
+    # them, and the same calls the hooks make one part at a time: what
+    # keeping the loop columns on the card (ROADMAP A9) would leave is the
+    # kernel call
     nav_cl = next(iter(nav_exe.lower()._loops.values()))
     probe_index = cexec._ProbeIndex(("timing",), customer, "c_customer_sk")
     keys_np = orders.host("o_customer_sk")
-    hooks = {
-        "nav_probe_hook_ms": _host_ms(
-            lambda: cexec._probe(nav_cl, probe_index, keys_np)),
-        "fold_sum_hook_ms": _host_ms(
-            lambda: cexec._fold_sum(fold_cl, deltas_np, dev)),
-    }
+    cexec._probe(nav_cl, probe_index, keys_np)     # builds the slot table
+    dkeys = host_to_device(keys_np, dev, dtype=np.int32)
+    hits = ops.join_probe(dkeys, probe_index.direct)
+    dvals = host_to_device(deltas_np, dev, dtype=np.float32)
+    ids = torch.zeros(n_fold, dtype=torch.int32, device=dev)
+    total = ops.segment_reduce(dvals, ids, 1, op="sum")
+    sync()
+    hooks = {}
+    hooks["nav_probe_hook_ms"], hooks["nav_probe_split_ms"] = _split({
+        "whole": lambda: cexec._probe(nav_cl, probe_index, keys_np),
+        "host_to_device": lambda: host_to_device(keys_np, dev, dtype=np.int32),
+        "kernel": lambda: ops.join_probe(dkeys, probe_index.direct),
+        "device_to_host": lambda: hits.cpu().numpy()})
+    hooks["fold_sum_hook_ms"], hooks["fold_sum_split_ms"] = _split({
+        "whole": lambda: cexec._fold_sum(fold_cl, deltas_np, dev),
+        "host_to_device": lambda: host_to_device(deltas_np, dev,
+                                                 dtype=np.float32),
+        "zero_ids": lambda: torch.zeros(n_fold, dtype=torch.int32, device=dev),
+        "kernel": lambda: ops.segment_reduce(dvals, ids, 1, op="sum"),
+        "device_to_host": lambda: float(total[0].item())})
     return entries, hooks
+
+
+def _split(parts, reps: int = 15):
+    """Host time of a whole hook call and of each of its parts (each ended
+    by a synchronize), taken in turns, ``reps`` rounds: the medians, and the
+    rest of the whole's time that no part accounts for."""
+    for fn in parts.values():
+        fn()
+    sync()
+    times = {name: [] for name in parts}
+    for _ in range(reps):
+        for name, fn in parts.items():
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    out = {name: statistics.median(t) for name, t in times.items()}
+    whole = out.pop("whole")
+    out["rest"] = whole - sum(out.values())
+    return whole, out
 
 
 def _visible_keys(Tq: int, Tk: int, causal: bool, window, chunk):
@@ -1047,7 +1162,8 @@ def main() -> int:
                                    launches)
     emit({"phase": "hooks", **hooks,
           "note": "whole hook call: host keys/deltas to the card, kernel, "
-                  "result back to the host"})
+                  "result back to the host; *_split_ms: each part alone, "
+                  "rest = whole - parts"})
     del order_db, wilos_db, nav_exe, fold_lowered
 
     # the LM serving paths, each with its counts from 0 (inside phase_serve)

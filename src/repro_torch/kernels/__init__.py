@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for the framework's hot spots.
 
-  segment_reduce  — relational γ group-by aggregation (two fixed-order passes)
+  segment_reduce  — relational γ group-by aggregation (fixed order: one
+                    launch for one segment, two passes for more)
   join_probe      — direct-address equi-join probe (application-side join),
                     with ``build_direct_table`` building its slot table
   flash_attention — online-softmax attention (causal/SWA/chunked/GQA)

@@ -23,10 +23,10 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "check",
-           "library_path", "rows16"]
+           "library_path", "rows16", "aligned16", "stream_counter"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -40,6 +40,8 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per source
 ptxas_report: Dict[str, str] = {}
+# zeroed ticket counters, by (device index, stream)
+_counters: Dict[Tuple[int, int], object] = {}
 
 
 def _nvcc() -> str:
@@ -139,3 +141,31 @@ def rows16(t) -> bool:
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
             and t.shape[3] % per == 0
             and all(st % per == 0 for st in t.stride()[:3]))
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's base address is 16-byte aligned, so that a
+    kernel may read (and write) it 16 bytes at a time. A view into a column
+    (``t[1:]``) is not; its kernel then takes four scalar accesses per
+    vector over the same elements in the same order."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def stream_counter(device):
+    """Two 4-byte words, zeroed once, for the grid-wide tickets and barriers
+    of kernels launched on ``device``'s current stream: the first counts
+    ``segment_reduce``'s last-block tickets, the second
+    ``build_direct_table``'s barrier arrivals in its low half and a
+    generation in its high half. Every launch leaves the counts at zero,
+    so no call clears them. Launches on one stream run one after another
+    and share the words; two streams may run launches at once, so each
+    stream has its own."""
+    import torch
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    counter = _counters.get(key)
+    if counter is None:
+        with torch.cuda.stream(stream):
+            counter = torch.zeros((2,), dtype=torch.int32, device=stream.device)
+        _counters[key] = counter
+    return counter

@@ -9,6 +9,8 @@ row index of the build row with key j, or -1. The kernels are in
 Each wrapper dispatches on the tensor's device: a CUDA tensor launches the
 kernel (and bumps the wrapper's ``launches`` count), a CPU tensor takes the
 plain version in :mod:`.ref`. There is no fallback from one to the other.
+Each CUDA call is one launch: the probe one thread per key, the build one
+cooperative launch with a grid barrier between its fill and its scatter.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ __all__ = ["join_probe", "build_direct_table"]
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
-    "cobra_build_direct_table": (_P, _I64, _P, _I64, _P),
+    "cobra_build_direct_table": (_P, _I64, _P, _I64, _P, _P),
     "cobra_join_probe": (_P, _I64, _P, _I64, _P, _P),
 }
 _MAX_ROWS = (1 << 31) - 1      # row ids are int32
@@ -59,9 +61,12 @@ def build_direct_table(table_keys: torch.Tensor, key_space: int) -> torch.Tensor
     if key_space == 0:
         return slots
     with torch.cuda.device(keys.device):
+        # the grid barrier counts on the current stream's own counter: two
+        # streams may run two builds at once, whose arrivals would mix
+        barrier = build.stream_counter(keys.device)[1:]
         err = _lib().cobra_build_direct_table(
             keys.data_ptr(), n, slots.data_ptr(), key_space,
-            torch.cuda.current_stream().cuda_stream)
+            barrier.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(err, "build_direct_table")
     build_direct_table.launches += 1
     return slots

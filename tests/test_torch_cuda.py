@@ -11,6 +11,11 @@ runs where only torch is installed::
   * ``segment_reduce``: exactly on integer-valued inputs, ``rtol=1e-5`` on
     random fp32 sums (the kernel sums in float32 in a fixed blocked order,
     the plain version in float64 rounded once);
+  * their edges: N = 4k + 1, 2, 3 and bases off 16 bytes (``t[1:]``, the
+    scalar route over the same rows in the same order, so the same bits),
+    fp32 sums bit-identical call after call (the ticket counter is left at
+    zero), both kernels on two streams in turn, and duplicate build keys
+    under the one-launch builder;
   * the compiled tier on a card-resident database: the kernels launch, and
     the outputs and clock equal those of the same database on the CPU;
   * ``flash_attention``: the reference's attention sweep plus the serving
@@ -122,6 +127,105 @@ def test_launches_are_counted_on_the_card_only(cuda):
     assert ops.launch_counts() == {"join_probe": 1, "build_direct_table": 1,
                                    "segment_reduce": 1, "flash_attention": 0,
                                    "rwkv6_scan": 0}
+
+
+def _view(a, offset, cuda):
+    """``a`` on the card, ``offset`` elements into its buffer (a view whose
+    base is off 16 bytes when ``offset`` is 1)."""
+    a = np.asarray(a)
+    buf = torch.as_tensor(np.concatenate([np.zeros(offset, a.dtype), a]),
+                          device=cuda)
+    return buf[offset:]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [100_001, 100_002, 100_003, 2, 7])
+def test_join_probe_over_views_and_ragged_lengths(cuda, n, offset):
+    rng = np.random.default_rng(n + offset)
+    probe = rng.integers(-5, 5005, size=n).astype(np.int32)
+    keys = rng.permutation(5000).astype(np.int32)
+    dkeys = _view(keys, offset, cuda)
+    slots = ops.build_direct_table(dkeys, 5000)
+    got = ops.join_probe(_view(probe, offset, cuda), slots)
+    assert build.aligned16(dkeys) == (offset == 0)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ref.join_probe_np(probe, keys))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("groups", [1, 7])
+@pytest.mark.parametrize("n", [300_001, 300_002, 300_003, 3])
+def test_segment_reduce_over_views_and_ragged_lengths(cuda, n, groups, offset):
+    rng = np.random.default_rng(n + groups)
+    ints = rng.integers(-50, 50, size=n).astype(np.float32)
+    segs = rng.integers(-1, groups + 1, size=n).astype(np.int32)  # some out
+    floats = rng.uniform(0, 1, size=n).astype(np.float32)
+    dsegs = _view(segs, offset, cuda)
+    for op in ref.SEGMENT_OPS:
+        got = ops.segment_reduce(_view(ints, offset, cuda), dsegs, groups, op=op)
+        want = ref.segment_reduce_ref(torch.as_tensor(ints), t32(segs), groups,
+                                      op=op)
+        assert torch.equal(got.cpu(), want), op
+    got = ops.segment_reduce(_view(floats, offset, cuda), dsegs, groups)
+    # the same rows in the same order on the 16-byte and the scalar path
+    assert torch.equal(got, ops.segment_reduce(_view(floats, 1 - offset, cuda),
+                                               _view(segs, 1 - offset, cuda),
+                                               groups))
+    torch.testing.assert_close(got.cpu(), ref.segment_reduce_ref(
+        torch.as_tensor(floats), t32(segs), groups), rtol=1e-5, atol=0)
+
+
+def test_segment_reduce_sums_are_bit_identical_call_after_call(cuda):
+    rng = np.random.default_rng(5)
+    vals = torch.as_tensor(rng.uniform(-1, 1, 2_880_404).astype(np.float32),
+                           device=cuda)
+    segs = torch.zeros(vals.shape[0], dtype=torch.int32, device=cuda)
+    runs = [ops.segment_reduce(vals, segs, 1) for _ in range(3)]
+    torch.cuda.synchronize()
+    # each launch found the counter at zero and left it there
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    assert int(build.stream_counter(vals.device)[0]) == 0
+
+
+def test_kernels_on_two_streams_in_turn(cuda):
+    rng = np.random.default_rng(6)
+    vals = torch.as_tensor(rng.uniform(-1, 1, 500_000).astype(np.float32),
+                           device=cuda)
+    segs = torch.zeros(vals.shape[0], dtype=torch.int32, device=cuda)
+    keys = torch.as_tensor(rng.permutation(50_000).astype(np.int32), device=cuda)
+    probe = torch.as_tensor(rng.integers(0, 50_000, 500_000).astype(np.int32),
+                            device=cuda)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    sums, hits = [], []
+    for i in range(6):
+        with torch.cuda.stream(streams[i % 2]):
+            sums.append(ops.segment_reduce(vals, segs, 1))
+            hits.append(ops.join_probe(probe, ops.build_direct_table(keys, 50_000)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(s, sums[0]) for s in sums)
+    assert all(torch.equal(h, hits[0]) for h in hits)
+    np.testing.assert_array_equal(hits[0].cpu().numpy(), ref.join_probe_np(
+        probe.cpu().numpy(), keys.cpu().numpy()))
+    for s in streams:   # tickets and barrier arrivals back at zero
+        with torch.cuda.stream(s):
+            tickets, barrier = build.stream_counter(vals.device).tolist()
+            assert tickets == 0 and barrier & 0xFFFF == 0
+
+
+def test_duplicate_build_keys_keep_the_first_row_at_scale(cuda):
+    rng = np.random.default_rng(7)
+    keys = rng.integers(-10, 60_000, size=300_000).astype(np.int32)  # 5 per key
+    got = ops.build_direct_table(torch.as_tensor(keys, device=cuda), 50_000)
+    want = ref.build_direct_table_ref(t32(keys), 50_000)
+    assert torch.equal(got.cpu(), want)
+    probe = np.arange(-3, 50_003, dtype=np.int32)
+    hits = ops.join_probe(torch.as_tensor(probe, device=cuda), got).cpu()
+    assert torch.equal(hits, ref.slot_gather_ref(t32(probe), want))
+    inside = slice(3, 50_003)   # keys in [0, 50,000): the first stable match
+    np.testing.assert_array_equal(hits.numpy()[inside], ref.join_probe_np(
+        probe[inside], np.where(keys < 50_000, keys, -1)))
 
 
 def test_mixed_devices_raise(cuda):

@@ -23,6 +23,7 @@ versions on the card.
 """
 
 import importlib
+import inspect
 
 import numpy as np
 import pytest
@@ -189,12 +190,69 @@ def test_other_devices_raise(call):
                                       (5000, 600), (2_880_404, 5000),
                                       (10, 1 << 20)])
 def test_segment_reduce_launch_shape_covers_every_row(n, groups):
-    tg, nrb, rows_per_block, tiles = sr.launch_shape(n, groups)
-    assert tg & (tg - 1) == 0 and 256 % tg == 0 and tg <= 32
-    assert tiles * tg >= groups > (tiles - 1) * tg
+    shape = sr.launch_shape(n, groups)
     # every row in one row block, and no row block empty
-    assert (nrb - 1) * rows_per_block < n <= nrb * rows_per_block
-    assert 1 <= nrb <= 1024 and groups * nrb <= 1 << 26
+    assert (shape.blocks - 1) * shape.rows_per_block < n \
+        <= shape.blocks * shape.rows_per_block
+    assert 1 <= shape.blocks <= 1024
+    if groups == 1:
+        # one launch: whole 16-byte vectors per block, one partial per block,
+        # one ticket counter
+        assert shape.route == "stream"
+        assert shape.rows_per_block % 4 == 0
+        assert (shape.tg, shape.tiles) == (1, 1)
+        assert shape.partials == shape.blocks and shape.counters == 1
+    else:
+        tg, tiles = shape.tg, shape.tiles
+        assert shape.route == "tiled"
+        assert tg & (tg - 1) == 0 and 256 % tg == 0 and tg <= 32
+        assert tiles * tg >= groups > (tiles - 1) * tg
+        assert shape.partials == groups * shape.blocks <= 1 << 26
+        assert shape.counters == 0
+
+
+def _stream_order(n):
+    """The rows of ``n`` in the order the one-segment kernel folds them, per
+    block and thread: thread t's vectors t, t + 256, ..., each vector's four
+    rows in order, then (thread 0) the rows past the last whole vector."""
+    shape = sr.launch_shape(n, 1)
+    order = []
+    for b in range(shape.blocks):
+        r0 = b * shape.rows_per_block
+        r1 = min(r0 + shape.rows_per_block, n)
+        nvec = (r1 - r0) // 4
+        for t in range(256):
+            mine = [r0 + 4 * v + j for v in range(t, nvec, 256)
+                    for j in range(4)]
+            if t == 0:
+                mine += list(range(r0 + 4 * nvec, r1))
+            order.append(mine)
+    return order
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4093, 4097, 9000, 70_003])
+def test_segment_reduce_stream_folds_each_row_once(n):
+    rows = [r for thread in _stream_order(n) for r in thread]
+    assert sorted(rows) == list(range(n))
+
+
+@pytest.mark.parametrize("n,groups", [(2_880_404, 1), (2_880_404, 600),
+                                      (5000, 1)])
+def test_segment_reduce_launch_shape_depends_on_n_and_g_alone(n, groups):
+    # two arguments, no card: the same (N, G) cut the same way anywhere
+    assert list(inspect.signature(sr.launch_shape).parameters) == \
+        ["n", "num_segments"]
+    assert sr.launch_shape(n, groups) == sr.launch_shape(n, groups)
+    assert sr.launch_shape(n + 4096, groups) != sr.launch_shape(n, groups)
+
+
+def test_aligned16_decides_the_16_byte_paths():
+    for dtype in (torch.float32, torch.int32):
+        col = torch.zeros(64, dtype=dtype)
+        assert build.aligned16(col) and build.aligned16(col, col[4:])
+        assert not build.aligned16(col[1:])
+        assert not build.aligned16(col, col[2:])
+        assert build.aligned16(col[8:]) and not build.aligned16(col[7:])
 
 
 def test_library_path_follows_source_and_flags():
