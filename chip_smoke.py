@@ -12,6 +12,14 @@ just after:
     (2,880,404 orders, the row count of SF1 ``store_sales``; 100,000
     customers, SF1 ``customer``): ``join_probe``, ``build_direct_table``,
     ``segment_reduce``;
+  * the serving loop (``ServingRuntime.serve``) at SF1: P0 compiled against
+    2,000 orders, then fed the SF1 tables without ``analyze()``, so that
+    drift re-optimizes it from the join to the prefetch plan; and P0, W_B
+    and W_F as written, whose compiled tier launches ``join_probe``,
+    ``build_direct_table`` and ``segment_reduce`` inside the loop;
+  * the sharded cluster (``ClusterRuntime.serve``, 4 workers) over the
+    Wilos tables at SF1 scale, bit-identical to one ``ServingRuntime`` on
+    the same stream, ``segment_reduce`` launched inside its workers;
   * LM serving through ``Server.generate`` at the full published widths and
     depths of h2o-danube-1.8b (``flash_attention``) and rwkv6-3b
     (``rwkv6_scan``), seeded random weights: 4 requests of 1,000 / 2,000 /
@@ -53,6 +61,13 @@ MAX_SEQ = 4608
 NEW_TOKENS = 32
 SCALE = "full"              # the published configuration, every layer
 RELATIONAL = ("join_probe", "build_direct_table", "segment_reduce")
+# the serving loop: P0 requests served after the drift (batches of 4)
+DRIFT_REQUESTS = 8
+DRIFT_ORDERS = 2_000        # the orders P0 is compiled against before the load
+# the cluster's mixed stream: W_E requests with distinct worklists of role
+# ids, and W_B and W_F among them
+CLUSTER_WE_REQUESTS = 32
+WORKLIST_LEN = 4
 # bf16 weights and activations through every layer: decode logits against
 # a full forward of the same tokens (another matmul shape, another bf16
 # rounding of each projection) agree to this, on logits of magnitude ~4
@@ -497,7 +512,7 @@ def phase_fold():
     tasks = db.table("tasks")
     want = {"W_B": {"n": tasks.nrows},
             "W_F": {"states": int(tasks.host("t_state").astype(np.int64).sum())}}
-    report, lowered = {}, None
+    report, lowered, fold_outs = {}, None, {}
     for name, make in (("W_B", make_wilos_b), ("W_F", make_wilos_f)):
         outs = {}
         for rules in ("empty", "default"):
@@ -528,9 +543,261 @@ def phase_fold():
         for acc, value in want[name].items():
             check(outs["empty"][acc] == outs["default"][acc] == value,
                   f"{name}.{acc}: {outs['empty'][acc]} / {outs['default'][acc]} / {value}")
+        fold_outs[name] = outs["empty"]
     emit({"phase": "fold", "tasks": N_TASKS, "roles": db.table("roles").nrows,
           "db_build_s": build_s, "runs": report})
-    return db, lowered
+    return db, lowered, fold_outs
+
+
+def phase_serving(order_db, wilos_db, main_out, fold_outs):
+    """``ServingRuntime.serve`` at SF1, in two parts.
+
+    (a) Drift: P0 registered with the paper's Exp 1-3 preset against 2,000
+    orders / 100,000 customers (the join plan), the SF1 tables swapped in
+    without ``analyze()``, 8 requests served. The first batch's observed
+    cardinalities trip the feedback controller: targeted re-analyze,
+    recompile to the prefetch plan, swap guard. Responses against the
+    numpy-checked main path; ``explain``, ``triage`` and ``scan_plan``.
+
+    (b) The kernels inside the loop: P0, W_B and W_F as written (empty rule
+    set), compiled tier from the first batch; ``join_probe``,
+    ``build_direct_table`` and ``segment_reduce`` must launch, and the
+    outputs equal the ``navigation`` and ``fold`` phases'.
+
+    Returns the launch counts of the whole phase, from 0 just before it."""
+    import dataclasses
+    from repro_torch.api import CobraSession, OptimizerConfig, RuleSet
+    from repro_torch.core import CostCatalog
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer, scan_plan
+    from repro_torch.programs import (make_orders_customer_db, make_p0,
+                                      make_wilos_b, make_wilos_f)
+    from repro_torch.relational import SLOW_REMOTE
+    from repro_torch.runtime import ServingRuntime
+    ops.reset_launch_counts()
+
+    # (a) drift -> targeted re-analyze -> recompile -> guarded swap
+    t0 = time.perf_counter()
+    db = make_orders_customer_db(DRIFT_ORDERS, N_CUSTOMERS, device=DEVICE)
+    tracer = Tracer()
+    session = CobraSession(db, CostCatalog(SLOW_REMOTE),
+                           config=OptimizerConfig.preset("paper-exp1-3"),
+                           tracer=tracer)
+    rt = ServingRuntime(session, batch_size=4, drift_threshold=3.0,
+                        compile_hot_plans=2)
+    rt.register(make_p0())
+    sync()
+    setup_s = time.perf_counter() - t0
+    # where the serve wall goes: the batches and the recompile are traced
+    # spans; the feedback's re-analyze and swap-guard replays are timed by
+    # wrapping the controller's two methods
+    feedback_s = {"refresh": 0.0, "validate_swap": 0.0}
+    for name in feedback_s:
+        def timed(*args, _name=name, _fn=getattr(rt.feedback, name)):
+            t = time.perf_counter()
+            try:
+                return _fn(*args)
+            finally:
+                feedback_s[_name] += time.perf_counter() - t
+        setattr(rt.feedback, name, timed)
+    plan_before = rt.executable("P0").describe()
+    check("JOIN" in repr(rt.executable("P0").program.body),
+          f"P0 at {DRIFT_ORDERS} orders is not the join plan: {plan_before}")
+    db.replace_table(order_db.table("orders"))
+    db.replace_table(order_db.table("customer"))
+    t0 = time.perf_counter()
+    n_compiles = len(tracer.spans("compile"))
+    out = rt.serve([("P0", {})] * DRIFT_REQUESTS)
+    sync()
+    serve_s = time.perf_counter() - t0
+    split = {"batches": [sp.wall_s for sp in tracer.spans("batch")],
+             "recompile": sum(sp.wall_s for sp in
+                              tracer.spans("compile")[n_compiles:]),
+             "reanalyze": feedback_s["refresh"],
+             "swap_guard_replays": feedback_s["validate_swap"]}
+    split["rest"] = serve_s - sum(split["batches"]) - sum(
+        v for k, v in split.items() if k != "batches")
+    exe = rt.executable("P0")
+    check(rt.recompiles >= 1, "no recompile after the drift")
+    check("prefetch" in repr(exe.program.body),
+          f"P0 did not flip to the prefetch plan: {exe.describe()}")
+    check(all(r["result"] == main_out for r in out),
+          "served P0 responses differ from the main path's")
+    explain = rt.explain("P0")
+    check("rules fired" in explain, "explain() shows no rules fired")
+    rows = rt.triage()
+    check(bool(rows) and rows[0].name == "P0", "triage does not rank P0")
+    naive = [s.kind for s in scan_plan(make_p0())]
+    check(naive == ["n_plus_one"], f"scan_plan(P0 as written): {naive}")
+    after = [s.kind for s in exe.scan()]
+    check(after == [], f"the recompiled plan still has signals: {after}")
+    drift = {"program": "P0", "orders": N_ORDERS, "customers": N_CUSTOMERS,
+          "compiled_against_orders": DRIFT_ORDERS, "requests": len(out),
+          "batch_size": 4, "plan_before": plan_before,
+          "plan_after": exe.describe(), "recompiles": rt.recompiles,
+          "swap_log": rt.feedback.swap_log,
+          "drift_events": [{"sql": e.sql, "kind": e.kind, "ratio": e.ratio}
+                           for e in rt.feedback.events],
+          "simulated_s": rt.simulated_s, "setup_s": setup_s,
+          "serve_wall_s": serve_s, "serve_wall_split_s": split,
+          "compiled_batches": rt.compiler.compiled_batches,
+          "interpreted_batches": rt.compiler.interpreted_batches,
+          "explain_rules_fired": next(ln.strip() for ln in explain.splitlines()
+                                      if "rules fired" in ln),
+          "triage_first_row": dataclasses.asdict(rows[0]),
+          "signals_as_written": naive, "signals_after": after,
+          "launches": ops.launch_counts()}
+    del rt, session, db, out
+
+    # (b) the programs as written: the kernels inside the loop
+    cfg = OptimizerConfig(rule_set=RuleSet([]), compile_hot_plans=1)
+    before = ops.launch_counts()
+    nav = ServingRuntime(CobraSession(order_db, CostCatalog(SLOW_REMOTE),
+                                      config=cfg))
+    nav.register(make_p0())
+    folds = ServingRuntime(CobraSession(wilos_db, CostCatalog(SLOW_REMOTE),
+                                        config=cfg))
+    folds.register(make_wilos_b())
+    folds.register(make_wilos_f())
+    (nav_out, nav_s), nav_busy = _device_busy(
+        lambda: nav.serve([("P0", {})] * 2))
+    (fold_out, fold_s), fold_busy = _device_busy(
+        lambda: folds.serve([("W_B", {}), ("W_F", {})] * 2))
+    launches = ops.launch_counts()
+    inside = {k: launches[k] - before[k] for k in launches}
+    missing = [k for k in RELATIONAL if inside[k] == 0]
+    check(not missing, f"kernels never launched inside ServingRuntime: {missing}")
+    check(all(r["result"] == main_out for r in nav_out),
+          "served P0 (as written) differs from the navigation phase")
+    for r, name in zip(fold_out, ("W_B", "W_F") * 2):
+        check(r.outputs == fold_outs[name],
+              f"served {name} (as written) differs from the fold phase")
+    emit({"phase": "serving", "drift": drift, "as_written": {
+          "programs": {"P0": nav.executable("P0").describe(),
+                       "W_B": folds.executable("W_B").describe(),
+                       "W_F": folds.executable("W_F").describe()},
+          "requests": {"P0": len(nav_out), "W_B": 2, "W_F": 2},
+          "serve_wall_s": {"P0": nav_s, "W_B+W_F": fold_s},
+          "device_busy_ms": {"P0": nav_busy, "W_B+W_F": fold_busy},
+          "simulated_s": {"P0": nav.simulated_s, "W_B+W_F": folds.simulated_s},
+          "compiled_batches": nav.compiler.compiled_batches
+          + folds.compiler.compiled_batches,
+          "recompiles": nav.recompiles + folds.recompiles,
+          "launches": inside}, "reduced": []})
+    return ops.launch_counts()
+
+
+def phase_cluster(wilos_db):
+    """``ClusterRuntime.serve`` on 4 workers over the Wilos tables at SF1
+    (tasks partitioned by ``t_role_id``, roles replicated): W_E requests
+    with distinct worklists, W_B and W_F, one ``analyze()`` mid-stream. The
+    same stream through one ``ServingRuntime(batch_size=8)`` over an
+    unsharded copy must give the same responses, bit for bit, and the same
+    tasks afterwards; W_E against numpy. Returns the cluster's launch
+    counts, from 0 just before its serving.
+
+    The single worker serves over ``wilos_db`` itself: the cluster's
+    coordinator took its own references to the same (immutable) tables
+    when it sharded them, so ``wilos_db`` is the unsharded copy, and a
+    second server would only repeat the SF1 ``analyze()``."""
+    import numpy as np
+    from repro_torch.api import CobraSession, OptimizerConfig, RuleSet
+    from repro_torch.cluster import ClusterRuntime
+    from repro_torch.kernels import ops
+    from repro_torch.programs import make_wilos_b, make_wilos_e, make_wilos_f
+    from repro_torch.runtime import ServingRuntime
+    cfg = OptimizerConfig(rule_set=RuleSet([]), compile_hot_plans=1)
+    programs = (make_wilos_e, make_wilos_b, make_wilos_f)
+    n_roles = wilos_db.table("roles").nrows
+    worklists = np.random.default_rng(15).permutation(n_roles)[
+        :CLUSTER_WE_REQUESTS * WORKLIST_LEN].reshape(-1, WORKLIST_LEN)
+    stream = []
+    for i, wl in enumerate(worklists.tolist()):
+        stream.append(("W_E", {"worklist": wl}))
+        if i % 16 == 7:
+            stream.append(("W_B", {}))
+        elif i % 16 == 15:
+            stream.append(("W_F", {}))
+    half = len(stream) // 2
+
+    t0 = time.perf_counter()
+    cl = ClusterRuntime(wilos_db, n_workers=4,
+                        partition_keys={"tasks": "t_role_id"},
+                        affinity={"W_E": "worklist"}, config=cfg)
+    for make in programs:
+        cl.register(make())
+    sync()
+    shard_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    (out, first_s), busy = _device_busy(lambda: cl.serve(stream[:half]))
+    makespans = [cl.last_makespan_s]
+    t1 = time.perf_counter()
+    cl.db.analyze()
+    sync()
+    analyze_s = time.perf_counter() - t1
+    (more, second_s), busy2 = _device_busy(lambda: cl.serve(stream[half:]))
+    out += more
+    makespans.append(cl.last_makespan_s)
+    launches = ops.launch_counts()
+    check(launches["segment_reduce"] > 0,
+          "segment_reduce never launched inside the cluster workers")
+
+    rt = ServingRuntime(CobraSession(wilos_db, config=cfg), batch_size=8)
+    for make in programs:
+        rt.register(make())
+    t1s = time.perf_counter()
+    single = rt.serve(stream[:half])
+    sync()
+    t2s = time.perf_counter()
+    wilos_db.analyze()
+    sync()
+    t3s = time.perf_counter()
+    single += rt.serve(stream[half:])
+    sync()
+    t4s = time.perf_counter()
+
+    diverged = [i for i, (a, b) in enumerate(zip(single, out))
+                if a.outputs != b.outputs]
+    check(len(out) == len(single) == len(stream) and not diverged,
+          f"cluster responses differ from one worker's at {diverged[:5]}")
+    tasks, tasks1 = cl.db.table("tasks"), wilos_db.table("tasks")
+    check(tasks.schema.names == tasks1.schema.names and all(
+        np.array_equal(tasks.host(c), tasks1.host(c))
+        for c in tasks.schema.names), "tasks differ after serving")
+    role, hours = wilos_db.table("tasks").host("t_role_id"), \
+        wilos_db.table("tasks").host("t_hours")
+    order = np.argsort(role, kind="stable")
+    lo = np.searchsorted(role[order], np.arange(n_roles), side="left")
+    hi = np.searchsorted(role[order], np.arange(n_roles), side="right")
+    n_we = 0
+    for (name, params), res in zip(stream, out):
+        if name != "W_E":
+            continue
+        want = np.concatenate([hours[order[lo[w]:hi[w]]]
+                               for w in params["worklist"]]).tolist()
+        check(res["result"] == want, f"W_E {params['worklist']} vs numpy")
+        n_we += 1
+    snap = cl.metrics_snapshot()
+    check(snap["workers_serving_requests_served"]
+          == sum(w.requests_served for w in cl.workers) == len(stream),
+          "the cluster's merged metrics disagree with its workers")
+    emit({"phase": "cluster", "tasks": tasks.nrows, "roles": n_roles,
+          "workers": cl.n_workers, "partitioned": {"tasks": "t_role_id"},
+          "requests": {"W_E": n_we, "W_B": sum(n == "W_B" for n, _ in stream),
+                       "W_F": sum(n == "W_F" for n, _ in stream)},
+          "worklist_len": WORKLIST_LEN,
+          "makespan_s": makespans, "worker_requests":
+          [w.requests_served for w in cl.workers],
+          "skew": cl.router.skew(), "db": cl.db.stats_dict(),
+          "shard_wall_s": shard_s, "serve_wall_s": first_s + second_s,
+          "analyze_wall_s": analyze_s,
+          "serve_device_busy_ms": busy + busy2 if busy is not None
+          and busy2 is not None else None,
+          "single_serve_wall_s": (t2s - t1s) + (t4s - t3s),
+          "single_analyze_wall_s": t3s - t2s,
+          "bit_identical_to_single_worker": True,
+          "launches": launches, "reduced": []})
+    return launches
 
 
 class _Capture:
@@ -725,6 +992,35 @@ def phase_serve(arch_name: str, kernel: str, entry: str):
     return launches[kernel], shapes
 
 
+def _busy_union_ms(prof) -> float:
+    """The union of the intervals in which a ``torch.profiler`` trace saw
+    the card run a kernel, copy or fill, in ms (each instant counted once
+    however the trace nests them)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3
+
+
+def _device_busy(fn):
+    """``((fn(), wall seconds), device busy ms)``: one call under a
+    ``torch.profiler`` trace of the card's activity, ended by a
+    synchronize. Busy is None where the trace holds no device activity
+    ("not measured")."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+    return (out, wall), (_busy_union_ms(prof) or None)
+
+
 def _step_ms(fn, reps: int = 3):
     """One model step's wall time and the device's busy time within it.
 
@@ -735,7 +1031,6 @@ def _step_ms(fn, reps: int = 3):
     them). The idle share is the part of the wall time the card ran
     nothing. Where the trace holds no device activity, both are None ("not
     measured")."""
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -749,18 +1044,12 @@ def _step_ms(fn, reps: int = 3):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    busy = busy_us / 1e3
+    busy = _busy_union_ms(prof)
     w = statistics.median(wall)
     return {"wall_ms": w, "device_busy_ms": busy or None,
             "idle_share": max(0.0, 1.0 - busy / w) if busy else None,
-            "device_events": len(spans)}
+            "device_events": sum(1 for e in prof.events()
+                                 if e.device_type == DeviceType.CUDA)}
 
 
 def _leaves(tree):
@@ -1152,7 +1441,7 @@ def main() -> int:
     ops.reset_launch_counts()
     main_out = phase_main_path(order_db)
     nav_exe = phase_navigation(order_db, main_out)
-    wilos_db, fold_lowered = phase_fold()
+    wilos_db, fold_lowered, fold_outs = phase_fold()
     launches = ops.launch_counts()
     missing = [k for k in RELATIONAL if launches[k] == 0]
     check(not missing,
@@ -1164,7 +1453,14 @@ def main() -> int:
           "note": "whole hook call: host keys/deltas to the card, kernel, "
                   "result back to the host; *_split_ms: each part alone, "
                   "rest = whole - parts"})
-    del order_db, wilos_db, nav_exe, fold_lowered
+
+    # the serving loop and the cluster, each with its counts from 0
+    serving_launches = phase_serving(order_db, wilos_db, main_out, fold_outs)
+    cluster_launches = phase_cluster(wilos_db)
+    for e in entries:
+        e["launches_serving"] = serving_launches[e["name"]]
+        e["launches_cluster"] = cluster_launches[e["name"]]
+    del order_db, wilos_db, nav_exe, fold_lowered, fold_outs, main_out
 
     # the LM serving paths, each with its counts from 0 (inside phase_serve)
     attn_launches, attn_shapes = phase_serve("h2o-danube-1.8b",

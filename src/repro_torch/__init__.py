@@ -21,10 +21,14 @@ CPU. ``repro_torch.carry.database_from_numpy`` loads numpy tables (for
 instance exported from the reference package) into a server.
 
 This package mirrors ``repro`` module for module and imports none of it.
-Ported so far: the compile -> batch -> compiled-tier path.
+Ported so far: the compile -> batch -> compiled-tier path, the serving loop
+(feedback re-optimization, plan diagnostics) and the sharded cluster.
 
   repro_torch.api         — CobraSession, OptimizerConfig, ProgramBuilder, PlanCache
-  repro_torch.runtime     — run_batch, SiteCache, PlanStore
+  repro_torch.runtime     — run_batch, SiteCache, PlanStore, ServingRuntime,
+                            FeedbackController
+  repro_torch.cluster     — ShardedDatabase, ClusterRuntime (router + batch former)
+  repro_torch.obs         — tracing, metrics, explain_plan, scan_plan, triage_fleet
   repro_torch.core        — the paper: regions, F-IR, Region DAG, rules, search
   repro_torch.compiled    — the compiled execution tier
   repro_torch.relational  — columnar torch tables + simulated DB environment

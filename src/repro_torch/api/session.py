@@ -12,9 +12,9 @@ configuration, and a stats-versioned plan cache::
     exe3 = session.compile(make_p0())      # recompiled against fresh stats
 
 In the reference package the same session also fronts the distributed
-step planner through :meth:`CobraSession.plan_step`; that planner, and the
-``explain()`` / ``scan()`` diagnostics, are not ported yet and raise
-``NotImplementedError`` here. Program rewriting returns a
+step planner through :meth:`CobraSession.plan_step`; that planner is not
+ported yet and raises ``NotImplementedError`` here. Program rewriting
+returns a
 :class:`PlanReport` (domain ``"program"``) with the chosen alternative, its
 estimated cost, the number of alternatives considered, and memo statistics.
 """
@@ -177,18 +177,23 @@ class Executable:
 
     def explain(self, *, feedback=None, site_cache=None,
                 compiler=None) -> str:
-        """EXPLAIN-style rendering of the winning plan (not ported yet:
-        ``obs.explain`` comes with the serving slice)."""
-        raise NotImplementedError(
-            "Executable.explain() is not ported to repro_torch yet "
-            "(obs/explain.py, ROADMAP A4)")
+        """EXPLAIN-style rendering of the winning plan: the region tree
+        annotated per site with estimated cost, estimated-vs-observed
+        counts (q-error), cache/tier status, and which rules derived it
+        (rewrite provenance). Pass the serving runtime's ``feedback`` /
+        ``site_cache`` / ``compiler`` to annotate with observed serving
+        statistics (``ServingRuntime.explain(name)`` does)."""
+        from ..obs.explain import explain_plan
+        return explain_plan(self, feedback=feedback, site_cache=site_cache,
+                            compiler=compiler)
 
     def scan(self, *, feedback=None, stats=None):
-        """Run the bad-plan-pattern catalog over the REWRITTEN program (not
-        ported yet: ``obs.signals`` comes with the serving slice)."""
-        raise NotImplementedError(
-            "Executable.scan() is not ported to repro_torch yet "
-            "(obs/signals.py, ROADMAP A4)")
+        """Run the bad-plan-pattern catalog over the REWRITTEN program
+        (:func:`repro_torch.obs.signals.scan_plan`); returns the list of
+        :class:`~repro_torch.obs.signals.Signal`\\ s still present after the
+        optimizer had its say."""
+        from ..obs.signals import scan_plan
+        return scan_plan(self, feedback=feedback, stats=stats)
 
     # ------------------------------------------------------------ execution
     def run(self, *, network: Optional[NetworkProfile] = None,

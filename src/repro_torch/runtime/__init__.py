@@ -1,4 +1,4 @@
-"""Batched runtime: batched execution, the serving site cache, persistent plans.
+"""Serving runtime: batched execution, persistent plans, feedback re-planning.
 
 The subsystem that fronts :class:`~repro_torch.api.session.CobraSession` for
 production-shaped workloads:
@@ -12,17 +12,30 @@ production-shaped workloads:
     (serving-layer MQO), with TTL + analyze()/write invalidation and
     per-site binding-diversity observation;
   * :mod:`repro_torch.runtime.store` — ``PlanStore``: disk-backed,
-    content-addressed plan cache shared across sessions/processes.
+    content-addressed plan cache shared across sessions/processes;
+  * :mod:`repro_torch.runtime.feedback` — ``FeedbackController``: observed-vs-
+    estimated cardinality drift triggers per-table re-analyze + recompile;
+    observed iteration counts and binding-diversity fractions publish into
+    the serving ExecutionContext;
+  * :mod:`repro_torch.runtime.serving` — ``ServingRuntime`` / ``serve()``: the
+    request loop wiring them together, including the compiled execution
+    tier (:mod:`repro_torch.compiled`): a ``CompileManager`` promotes hot
+    (program, plan, context) pairs to kernel-backed columnar executables
+    after ``compile_hot_plans`` interpreted invocations.
 
-The serving loop and the feedback controller of the reference package
-(``runtime/serving.py``, ``runtime/feedback.py``) are not ported yet.
+``chip_smoke.py`` (phases ``serving`` and ``cluster``) drives the loop on the
+card at TPC-DS SF1.
 """
 
 from .batch import BatchClientEnv, BatchResult, program_has_updates, run_batch
+from .feedback import DriftEvent, FeedbackController
+from .serving import ServingRuntime, serve
 from .sitecache import SiteCache, Uncacheable
 from .store import PlanStore
 
 __all__ = [
     "BatchClientEnv", "BatchResult", "run_batch", "program_has_updates",
-    "SiteCache", "Uncacheable", "PlanStore",
+    "SiteCache", "Uncacheable",
+    "PlanStore", "DriftEvent", "FeedbackController",
+    "ServingRuntime", "serve",
 ]

@@ -34,7 +34,14 @@ runs where only torch is installed::
     ragged tail, over rows off 16 bytes, and the -40 decay across a chunk
     boundary;
   * a scaled ``Server.generate`` on the card against the same server on
-    the CPU (fp32 parameters: the same tokens, logits within 1e-3).
+    the CPU (fp32 parameters: the same tokens, logits within 1e-3);
+  * the serving loop on the card: the drift flip (join -> prefetch) with
+    the compiled tier on, equal to the same stream on the CPU, and the
+    programs as written launching the relational kernels inside it;
+  * a 4-shard ``ClusterRuntime`` over card tables, bit-identical to one
+    ``ServingRuntime`` over the unsharded tables, ``segment_reduce``
+    launched inside its workers; every shard table, merged view and merged
+    result on the card.
 """
 
 import importlib
@@ -47,12 +54,16 @@ from _torch_cases import (ATTN_EXTRA, ATTN_KERNEL_TOL, ATTN_SWEEP, PROBE_CASES,
                           RWKV_SWEEP, RWKV_TOL, SEGMENT_CASES, TORCH_DTYPES,
                           attention_inputs, rwkv_inputs, t32)
 from repro_torch.api import CobraSession, OptimizerConfig, RuleSet
+from repro_torch.cluster import ClusterRuntime, ShardedDatabase
 from repro_torch.core import CostCatalog
 from repro_torch.kernels import build, ops, ref
 from repro_torch.launch import serve
 from repro_torch.programs import (make_orders_customer_db, make_p0,
-                                  make_wilos_b, make_wilos_db, make_wilos_f)
+                                  make_wilos_b, make_wilos_db, make_wilos_e,
+                                  make_wilos_f)
 from repro_torch.relational import SLOW_REMOTE
+from repro_torch.relational import algebra as A
+from repro_torch.runtime import ServingRuntime
 
 # the module (the package re-exports its function under the same name)
 rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
@@ -446,3 +457,133 @@ def test_server_on_the_card_equals_the_cpu(cuda, arch):
     assert got == cpu.generate(prompts)
     for a, b in zip(card.step_logits, cpu.step_logits):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# the serving loop and the sharded cluster on the card
+# --------------------------------------------------------------------------
+
+def _drift_serve(dev):
+    """P0 compiled against 100 orders / 5000 customers, the 4000 / 500
+    tables loaded without analyze, 8 requests in batches of 4."""
+    db = make_orders_customer_db(100, 5000, device=dev)
+    session = CobraSession(db, CostCatalog(SLOW_REMOTE),
+                           config=OptimizerConfig.preset("paper-exp1-3"))
+    rt = ServingRuntime(session, batch_size=4, drift_threshold=3.0,
+                        compile_hot_plans=2)
+    rt.register(make_p0())
+    assert "JOIN" in repr(rt.executable("P0").program.body)
+    grown = make_orders_customer_db(4000, 500, device=dev)
+    db.replace_table(grown.table("orders"))
+    db.replace_table(grown.table("customer"))
+    return rt, rt.serve([("P0", {})] * 8)
+
+
+def test_serving_drift_flip_on_the_card_equals_the_cpu(cuda):
+    cpu, cpu_out = _drift_serve("cpu")
+    card, out = _drift_serve("cuda")
+    torch.cuda.synchronize()
+    assert card.recompiles == cpu.recompiles >= 1
+    assert "prefetch" in repr(card.executable("P0").program.body)
+    assert card.compiler.compiled_batches > 0
+    assert card.feedback.swap_log == cpu.feedback.swap_log
+    assert card.simulated_s == cpu.simulated_s
+    assert [r.outputs for r in out] == [r.outputs for r in cpu_out]
+    assert card.executable("P0").scan() == []
+
+
+def test_serving_as_written_launches_the_kernels(cuda):
+    cfg = OptimizerConfig(rule_set=RuleSet([]), compile_hot_plans=1)
+    outs, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        nav = ServingRuntime(CobraSession(
+            make_orders_customer_db(3000, 300, device=dev),
+            CostCatalog(SLOW_REMOTE), config=cfg))
+        nav.register(make_p0())
+        folds = ServingRuntime(CobraSession(
+            make_wilos_db(3000, device=dev), CostCatalog(SLOW_REMOTE),
+            config=cfg))
+        folds.register(make_wilos_b())
+        folds.register(make_wilos_f())
+        ops.reset_launch_counts()
+        out = nav.serve([("P0", {})] * 2) \
+            + folds.serve([("W_B", {}), ("W_F", {})] * 2)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launched[dev] = ops.launch_counts()
+        outs[dev] = [r.outputs for r in out]
+    assert outs["cuda"] == outs["cpu"]
+    for k in ("join_probe", "build_direct_table", "segment_reduce"):
+        assert launched["cuda"][k] > 0 and launched["cpu"][k] == 0, k
+
+
+def _cluster_stream():
+    stream = []
+    for i in range(16):
+        stream.append(("W_E", {"worklist": [i % 7, 20 + i]}))
+        if i % 8 == 3:
+            stream.append(("W_F", {}))
+        elif i % 8 == 7:
+            stream.append(("W_B", {}))
+    return stream
+
+
+def test_cluster_on_the_card_equals_one_worker(cuda):
+    cfg = OptimizerConfig(rule_set=RuleSet([]), compile_hot_plans=1)
+    programs = (make_wilos_e, make_wilos_b, make_wilos_f)
+    stream = _cluster_stream()
+    half = len(stream) // 2
+    cl = ClusterRuntime(make_wilos_db(3000, device=cuda), n_workers=4,
+                        partition_keys={"tasks": "t_role_id"},
+                        affinity={"W_E": "worklist"}, max_batch=8,
+                        config=cfg)
+    for make in programs:
+        cl.register(make())
+    ops.reset_launch_counts()
+    out = cl.serve(stream[:half])
+    cl.db.analyze()
+    out += cl.serve(stream[half:])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["segment_reduce"] > 0
+    db = make_wilos_db(3000, device=cuda)
+    rt = ServingRuntime(CobraSession(db, config=cfg), batch_size=8)
+    for make in programs:
+        rt.register(make())
+    single = rt.serve(stream[:half])
+    db.analyze()
+    single += rt.serve(stream[half:])
+    assert [r.outputs for r in out] == [r.outputs for r in single]
+    for name in ("tasks", "roles"):
+        a, b = cl.db.table(name), db.table(name)
+        for c in a.schema.names:
+            assert np.array_equal(a.host(c), b.host(c)), (name, c)
+    assert cl.metrics_snapshot()["workers_serving_requests_served"] == \
+        sum(w.requests_served for w in cl.workers) == len(stream)
+
+
+def test_sharded_tables_and_merges_live_on_the_card(cuda):
+    base = make_wilos_db(2000, device=cuda)
+    sh = ShardedDatabase.shard(base, 4, keys={"tasks": "t_role_id"})
+    assert sh.device.type == "cuda"
+    for s in sh.shards:
+        assert s.device.type == "cuda"
+        assert all(t.device.type == "cuda" for t in s.tables.values())
+    queries = [
+        A.Scan("tasks"),
+        A.Join(A.Scan("tasks"), A.Scan("roles"), "t_role_id", "r_id"),
+        A.Aggregate(("t_state",), (A.AggSpec("avg", "t_role_id", "a"),
+                                   A.AggSpec("count", None, "n")),
+                    A.Scan("tasks")),
+        A.Aggregate((), (A.AggSpec("avg", "t_id", "a"),
+                         A.AggSpec("min", "t_hours", "lo"),
+                         A.AggSpec("sum", "t_role_id", "s")), A.Scan("tasks")),
+    ]
+    for q in queries:
+        got, want = sh.run(q)[0], base.run(q)[0]
+        assert got.device.type == "cuda"
+        assert got.schema.names == want.schema.names
+        for c in want.schema.names:
+            assert np.array_equal(got.host(c), want.host(c)), (q.sql(), c)
+    assert sh.scattered_queries == len(queries)
+    for name in ("tasks", "roles"):
+        assert sh.table(name).device.type == "cuda"
