@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the relational kernels of two checkouts in turns, on one NVIDIA GPU.
 
-    python3 chip_kernel_ab.py OTHER [--rounds R]
+    python3 chip_kernel_ab.py OTHER [--rounds R] [--attention [--arch NAME ...]]
 
 OTHER is another checkout of the repository (for instance the parent
 commit, unpacked with ``git archive`` into a git-ignored directory). The
@@ -20,6 +20,18 @@ JSON line per turn, the card's name and power limit, and a summary line
 [...]}}}`` (``clean_ms``: the same timer flushing by a read, so the L2 holds
 no dirty lines to write back; ``call_ms``: with the wrapper's host time). Exits
 non-zero if a turn fails. Imports nothing of JAX.
+
+With ``--attention`` the turns time ``flash_attention`` instead, at the
+serving shapes of ``chip_smoke.py``'s serve phases through it (each
+``--arch``, by default all of ``ATTENTION_ARCHS``): its 4 sequences'
+4,500-token prefill and one decode step over 4,531 slots, bf16 queries over
+the fp32 cache, both read through their serving layouts, each held to the
+plain version within ``chip_smoke.ATTN_TOL``. The heads come from the
+architecture: h2o-danube-1.8b (32 over 8 KV heads, hd 80, window 4,096;
+the cache holds bf16 values), qwen2-vl-72b (64 over 8, hd 128) and
+minicpm3-4b (MLA: 40 heads, q.k hd 96 = 64 + 32 with the rope key shared
+by the heads, v hd 64 a strided slice of the expanded latent, which holds
+fp32 values). Entries are named ``ARCH_prefill`` and ``ARCH_decode``.
 """
 
 import importlib
@@ -32,6 +44,72 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 ENTRIES = ("join_probe", "build_direct_table", "build_direct_table_sorted",
            "segment_reduce", "segment_reduce_g600")
+ATTENTION_ARCHS = ("h2o-danube-1.8b", "qwen2-vl-72b", "minicpm3-4b")
+
+
+def attention_calls(arch_name: str, normal):
+    """``{ARCH_call: (q, k, v, kwargs)}`` for one serve phase's prefill and
+    last decode step, in the layouts its attention layer passes."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.models import get_arch
+    arch = get_arch(arch_name)
+    B, H, S = len(cs.PROMPT_LENS), arch.n_heads, cs.MAX_SEQ
+    T = max(cs.PROMPT_LENS)
+    calls = {}
+    if arch.attn_kind == "mla":
+        nope, rdim, vhd = arch.qk_nope_dim, arch.qk_rope_dim, arch.vhd
+        for call, Tq, Tk in (("prefill", T, T),
+                             ("decode", 1, T + cs.NEW_TOKENS - 1)):
+            q = normal(B, Tq, H, nope + rdim).bfloat16().transpose(1, 2)
+            kv = normal(B, Tk, H, nope + vhd)
+            rope = normal(B, Tk, 1, rdim).bfloat16().float()
+            k = torch.cat([kv[..., :nope], rope.expand(B, Tk, H, rdim)],
+                          dim=-1).transpose(1, 2)
+            calls[f"{arch_name}_{call}"] = (
+                q, k, kv[..., nope:].transpose(1, 2),
+                {"scale": 1.0 / (nope + rdim) ** 0.5})
+        return calls
+    KV, hd = arch.n_kv_heads, arch.hd
+    cache = normal(2, B, S, KV, hd).bfloat16().float()
+    for call, Tq, Tk in (("prefill", T, T), ("decode", 1, T + cs.NEW_TOKENS - 1)):
+        calls[f"{arch_name}_{call}"] = (
+            normal(B, Tq, H, hd).bfloat16().transpose(1, 2),
+            cache[0, :, :Tk].transpose(1, 2), cache[1, :, :Tk].transpose(1, 2),
+            {"window": arch.window})
+    return calls
+
+
+def attention_turn(src: str, archs) -> dict:
+    """One turn of ``--attention``, in this process."""
+    sys.path.insert(0, src)
+    sys.path.insert(1, str(HERE))
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops, ref
+    build.build_all(("flash_attention",))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+    calls = {}
+    for arch_name in archs:
+        for name, (q, k, v, kw) in attention_calls(arch_name, normal).items():
+            calls[name] = (
+                lambda q=q, k=k, v=v, kw=kw: ops.attention(q, k, v, **kw),
+                lambda q=q, k=k, v=v, kw=kw: ref.flash_attention_ref(q, k, v,
+                                                                     **kw))
+    timer = cs._Timer()
+    out = {"src": src}
+    for name, (fn, plain) in calls.items():
+        cs.attention_close(fn(), plain(), f"{src}: {name}")
+        out[name] = {"ms": timer.ms(fn), "clean_ms": timer.ms(fn, clean=True),
+                     "call_ms": timer.ms(fn, hold=False),
+                     "kernel_ms": cs._kernel_ms(fn)}
+    return out
 
 
 def turn(src: str) -> dict:
@@ -88,8 +166,13 @@ def turn(src: str) -> dict:
 
 
 def main() -> int:
+    attention = "--attention" in sys.argv
+    archs = [sys.argv[i + 1] for i, a in enumerate(sys.argv)
+             if a == "--arch"] or list(ATTENTION_ARCHS)
     if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
-        print(json.dumps(turn(sys.argv[2])), flush=True)
+        out = attention_turn(sys.argv[2], archs) if attention \
+            else turn(sys.argv[2])
+        print(json.dumps(out), flush=True)
         return 0
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -101,20 +184,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_ab.py: CUDA is not available", file=sys.stderr)
         return 2
-    ab = {k: {"other": [], "this": []} for k in ENTRIES}
+    entries = [f"{a}_{c}" for a in archs for c in ("prefill", "decode")] \
+        if attention else ENTRIES
+    ab = {k: {"other": [], "this": []} for k in entries}
     for _ in range(rounds):
         for label, root in (("other", other), ("this", HERE), ("this", HERE),
                             ("other", other)):
             res = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--turn",
-                 str(root / "src")], capture_output=True, text=True,
+                 str(root / "src")]
+                + (["--attention"] + [x for a in archs for x in ("--arch", a)]
+                   if attention else []),
+                capture_output=True, text=True,
                 timeout=900, env={**os.environ, "PYTHONPATH": ""})
             if res.returncode != 0:
                 print(res.stdout + res.stderr, file=sys.stderr)
                 return 1
             line = json.loads(res.stdout.strip().splitlines()[-1])
             print(json.dumps({"turn": label, **line}), flush=True)
-            for k in ENTRIES:
+            for k in entries:
                 ab[k][label].append([line[k]["ms"], line[k]["clean_ms"],
                                      line[k]["call_ms"]])
     print(subprocess.run(

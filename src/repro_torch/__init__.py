@@ -22,7 +22,9 @@ instance exported from the reference package) into a server.
 
 This package mirrors ``repro`` module for module and imports none of it.
 Ported so far: the compile -> batch -> compiled-tier path, the serving loop
-(feedback re-optimization, plan diagnostics) and the sharded cluster.
+(feedback re-optimization, plan diagnostics), the sharded cluster, LM
+serving (dense GQA/SWA with RoPE or M-RoPE, MLA, RWKV6) and the step
+planner behind ``session.plan_step`` (costed for one H100 by default).
 
   repro_torch.api         — CobraSession, OptimizerConfig, ProgramBuilder, PlanCache
   repro_torch.runtime     — run_batch, SiteCache, PlanStore, ServingRuntime,
@@ -33,6 +35,8 @@ Ported so far: the compile -> batch -> compiled-tier path, the serving loop
   repro_torch.compiled    — the compiled execution tier
   repro_torch.relational  — columnar torch tables + simulated DB environment
   repro_torch.kernels     — CUDA kernels for Hopper (+ plain torch versions)
+  repro_torch.models      — LM architectures, layers, forward; launch.serve
+  repro_torch.analysis    — roofline terms (HW table) and report renderers
 """
 
 __version__ = "1.2.0"

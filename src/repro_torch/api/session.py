@@ -11,18 +11,21 @@ configuration, and a stats-versioned plan cache::
     db.analyze()                           # stats changed -> version bump
     exe3 = session.compile(make_p0())      # recompiled against fresh stats
 
-In the reference package the same session also fronts the distributed
-step planner through :meth:`CobraSession.plan_step`; that planner is not
-ported yet and raises ``NotImplementedError`` here. Program rewriting
-returns a
-:class:`PlanReport` (domain ``"program"``) with the chosen alternative, its
-estimated cost, the number of alternatives considered, and memo statistics.
+The same session also fronts the distributed step planner
+(``core.planner.plan``) through :meth:`CobraSession.plan_step`, so program
+rewriting and step-program sharding share one configuration/result
+vocabulary: both return a :class:`PlanReport` (domain ``"program"`` vs
+``"step"``) with the chosen alternative, its estimated cost, the number of
+alternatives considered, and memo statistics. The step planner costs plans
+with the ``analysis.roofline.HW`` table (one H100 SXM by default), which
+``ExecutionContext.hw`` overlays per session.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import time
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 from ..core.context import ExecutionContext, ONE_SHOT
@@ -302,6 +305,7 @@ class CobraSession:
             from ..runtime.store import PlanStore
             plan_store = PlanStore.coerce(plan_store)
         self.plan_store = plan_store
+        self._step_cache: Dict[Tuple, PlanReport] = {}
         # zero the registry-backed telemetry counters (class descriptors)
         self.compile_calls = 0
         self.memo_runs = 0
@@ -426,14 +430,59 @@ class CobraSession:
                   global_batch: int, kind: str,
                   mesh: Tuple[int, ...] = (1, 16, 16),
                   top_k: int = 1) -> Union[PlanReport, list]:
-        """Front the step-program planner (not ported yet: the planner, the
-        architecture registry and the roofline model come with ROADMAP A7,
-        with an H100 hardware profile in place of the TPU one)."""
-        raise NotImplementedError(
-            "CobraSession.plan_step() is not ported to repro_torch yet "
-            "(core/planner.py, models/arch.py, analysis/roofline.py; "
-            "ROADMAP A7)")
+        """Front the step-program planner with the same result vocabulary.
 
+        Accepts an architecture name (resolved via ``models.arch.get_arch``)
+        or an ``ArchConfig``. ``top_k > 1`` returns the K best reports."""
+        from ..core.planner import enumerate_plans, plan as planner_plan
+        cfg = arch
+        if isinstance(arch, str):
+            from ..models.arch import get_arch
+            cfg = get_arch(arch)
+        name = f"{getattr(cfg, 'name', arch)}/{kind}/T{seq_len}/B{global_batch}"
+        # the hardware profile is a memo-key component like the catalog is
+        # for program plans: an HW-table override (e.g. a different chip's
+        # peak FLOPs) must not be served a plan costed for the old hardware
+        from ..analysis.roofline import HW
+        # a context-pinned HW profile overlays the global table for this
+        # plan; the cache keys on the EFFECTIVE values, so a global HW
+        # override (e.g. a different chip's peak FLOPs) still invalidates
+        # and a pinned profile is genuinely what the plan is costed for
+        override = dict(self.context.hw)
+        hw_key = tuple(sorted({**HW, **override}.items()))
+        key = (name, tuple(mesh), top_k, hw_key)
+        cached = self._step_cache.get(key)
+        if cached is not None:
+            return cached
+
+        t0 = time.perf_counter()
+        saved = {k: HW[k] for k in override if k in HW}
+        added = set(override) - set(HW)
+        HW.update(override)
+        try:
+            out = planner_plan(cfg, seq_len, global_batch, kind, mesh=mesh,
+                               top_k=top_k)
+        finally:
+            HW.update(saved)
+            for k in added:
+                HW.pop(k, None)
+        dt = time.perf_counter() - t0
+        if top_k == 1:
+            report = PlanReport(
+                domain="step", name=name, choice=out["choice"],
+                est_cost_s=out["cost_s"], alternatives=out["n_alternatives"],
+                memo_stats=out["memo"], opt_time_s=dt, artifact=out["terms"])
+        else:
+            n_alts = len(enumerate_plans(cfg, kind))
+            report = [PlanReport(domain="step", name=name, choice=c["choice"],
+                                 est_cost_s=c["cost_s"], alternatives=n_alts,
+                                 memo_stats={}, opt_time_s=dt,
+                                 artifact=c["terms"])
+                      for c in out]
+        self._step_cache[key] = report
+        return report
+
+    # ------------------------------------------------------- tracing frontend
     def trace(self, fn=None, *, name: Optional[str] = None,
               relations: Sequence[Tuple] = ()):
         """Decorator: compile a **plain Python function** into an

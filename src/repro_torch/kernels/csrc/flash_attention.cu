@@ -1,11 +1,13 @@
 // Blocked online-softmax attention (flash attention, forward), for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
-// flash_attention (its _kernel). q (B,H,Tq,hd), k/v (B,KV,Tk,hd), GQA with
-// H % KV == 0, causal / sliding-window / chunk-local masks, the query block
-// at the tail of the keys (q_offset = Tk - Tq). Running max, sum and
-// accumulator are fp32; masked scores are -1e30 with p = 0, and the output
-// is acc / max(l, 1e-30), so a row with every key masked gives 0.
+// flash_attention (its _kernel). q (B,H,Tq,hd), k (B,KV,Tk,hd), v
+// (B,KV,Tk,hdv) with hdv <= hd (MLA's v head is narrower than its q.k one;
+// every other caller has hdv = hd), GQA with H % KV == 0, causal /
+// sliding-window / chunk-local masks, the query block at the tail of the
+// keys (q_offset = Tk - Tq). Running max, sum and accumulator are fp32;
+// masked scores are -1e30 with p = 0, and the output (B,H,Tq,hdv) is
+// acc / max(l, 1e-30), so a row with every key masked gives 0.
 //
 // Two bodies share the grid, the masks and the split-key combine; q's type
 // picks one:
@@ -32,11 +34,22 @@
 //     serves twice the products; a short one (decode) 4.
 //   * 64-key tiles: cp.async 16-byte copies into an fp32 (or bf16) stage,
 //     converted to padded bf16 hi (and lo) tiles, rows padded against bank
-//     conflicts and hd padded to 16 with zeros, that ldmatrix reads. The
-//     next tile's copies are in flight while this one is converted and
-//     multiplied: two stages in an 8-warp block (127 KB of shared memory at
-//     hd 80, one block an SM, as its registers allow), one stage issued
-//     after the conversion in a 4-warp block (86 KB, two blocks an SM).
+//     conflicts and hd padded to the mma depth (KS slices of 16) with
+//     zeros, that ldmatrix reads. KS is instantiated for 1..6, 8 and 10
+//     (hd up to 96, 128, 160); a head dim between them takes the next one
+//     up, its padding zero. A v narrower than hd (VN) is a variant of its
+//     own, built at KS 6 only (MLA: hd 96, hdv 64): V rows are staged hdv
+//     wide and zero-padded the same way, so the P.V tiles past hdv give 0,
+//     and the stores stop at hdv. Every other instantiation has hdv = hd
+//     at compile time (a runtime hdv cost danube's prefill 4-5 %; skipping
+//     the P.V tiles past hdv made MLA's slower: PERF.md).
+//   * The next tile's copies are in flight while this one is converted
+//     and multiplied: two stages in an 8-warp block where they fit in the
+//     232,448 bytes a block may take (one block an SM, as its registers
+//     allow: 127 KB at hd 80, 201 KB at hd 128 over fp32), else one stage
+//     issued after the conversion (hd 160 over fp32: 168 KB; and every
+//     4-warp block, 86 KB at hd 80, two blocks an SM). The stage count is a
+//     function of the cache type, KS and the warps (Stages below).
 //   * Masks are applied per element only on tiles that straddle the
 //     causal, window or chunk edge or the end of the keys; tiles wholly
 //     outside them are never visited. The online softmax runs in registers
@@ -52,8 +65,9 @@
 // uses). A two-way bf16 split cannot meet fp32's 2e-5 tolerance, so fp32 q
 // stays on the CUDA cores (67 TFLOP/s): a lane scores one key of a 32-key
 // tile against four rows at a time from shared memory and accumulates p.V
-// with each lane owning 32-dim slices of the head. At decode (Tq = 1) the
-// call is bound by the bytes of the cache, and the mma body, whose cp.async
+// with each lane owning 32-dim slices of the head (HC = 1..5 slices: hd up
+// to 160, 84 KB of shared memory there). At decode (Tq = 1) the call is
+// bound by the bytes of the cache, and the mma body, whose cp.async
 // copies keep a whole tile in flight, beat the CUDA-core body there too on
 // the H100 (PERF.md), so bf16 q takes it at every shape.
 //
@@ -61,9 +75,9 @@
 // the wrapper splits the key range over a grid dimension; each split
 // writes fp32 partials (acc, m, l) and flash_combine folds them in split
 // order. Strides are arguments: q may be the (B,T,H,hd) projection and k/v
-// the (B,S,KV,hd) cache, viewed as (B,H,T,hd) without a copy; where a K/V
-// row is not 16-byte aligned the mma body copies element by element.
-// Ragged Tq and Tk are masked in the kernel. Head dims up to 96.
+// the (B,S,KV,hd) cache, viewed as (B,H,T,hd) without a copy; where a K or
+// V row is not 16-byte aligned the mma body copies both element by
+// element. Ragged Tq and Tk are masked in the kernel. Head dims 1..160.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -83,6 +97,7 @@ constexpr int kGroup = 4;                    // rows scored together
 constexpr int kKeys = 32;                    // keys per tile, one per lane (simt)
 constexpr int kKeysTc = 64;                  // keys per tile (mma)
 constexpr int kLoads = 8;                    // K/V loads in flight per thread
+constexpr size_t kMaxSmem = 232448;          // dynamic shared memory a block may take
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -118,9 +133,10 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  float* part_acc;  // (splits, B*H*Tq, hd) when splits > 1
+  float* part_acc;  // (splits, B*H*Tq, hdv) when splits > 1
   float* part_ml;   // (splits, B*H*Tq, 2)
   int B, H, KV, Tq, Tk, hd;
+  int hdv;          // v's head dim (<= hd): the output's
   long long sq[4], sk[4], sv[4], so[4];  // element strides (b, head, t, d)
   int causal, window, chunk;             // window / chunk: 0 = none
   float scale;
@@ -128,7 +144,7 @@ struct Args {
   int n_hgroups;  // blocks across one GQA group's heads
   int bt;         // query positions per block
   int splits;
-  int vec;        // K/V rows 16-byte aligned: cp.async (mma body)
+  int vec;        // K and V rows 16-byte aligned: cp.async (mma body)
 };
 
 // Query rows of a block: row i is head (group index i / bt) at position
@@ -252,6 +268,8 @@ flash_fwd_simt(const Args a) {
         kx[i] = vx[i] = 0.f;
         if (kp < a.Tk && d < a.hd) {
           kx[i] = k[b * a.sk[0] + kvh * a.sk[1] + kp * a.sk[2] + d * a.sk[3]];
+        }
+        if (kp < a.Tk && d < a.hdv) {
           vx[i] = v[b * a.sv[0] + kvh * a.sv[1] + kp * a.sv[2] + d * a.sv[3]];
         }
       }
@@ -338,7 +356,7 @@ flash_fwd_simt(const Args a) {
 #pragma unroll
       for (int c = 0; c < HC; ++c) {
         const int d = c * 32 + lane;
-        if (d < a.hd) {
+        if (d < a.hdv) {
           out[b * a.so[0] + r.head * a.so[1] + r.t * a.so[2] + d * a.so[3]] =
               acc[rr][c] / denom;
         }
@@ -350,7 +368,7 @@ flash_fwd_simt(const Args a) {
 #pragma unroll
       for (int c = 0; c < HC; ++c) {
         const int d = c * 32 + lane;
-        if (d < a.hd) a.part_acc[at * a.hd + d] = acc[rr][c];
+        if (d < a.hdv) a.part_acc[at * a.hdv + d] = acc[rr][c];
       }
       if (lane == 0) {
         a.part_ml[at * 2] = m[rr];
@@ -479,7 +497,8 @@ __device__ __forceinline__ void qk_tile(float (&s)[kKeysTc / 8][4], const uint32
 
 // o += p_hi v_hi + p_lo v_hi (+ p_hi v_lo when LO), p the warp's
 // probabilities in the score layout (the A fragments of the product); the V
-// fragments by ldmatrix.trans
+// fragments by ldmatrix.trans. Columns past v's head dim are zero in the
+// tiles, so their o stays 0 and is never stored
 template <int NT, bool LO>
 __device__ __forceinline__ void pv_tile(float (&o)[NT][4], const float (&p)[kKeysTc / 8][4],
                                         const __nv_bfloat16* vh, const __nv_bfloat16* vl,
@@ -518,28 +537,31 @@ struct MmaTile {
   static constexpr int KN = kKeysTc / 8;  // 8-key score tiles
 };
 
-// K/V stages in flight: one for 4-warp blocks (two blocks share an SM),
-// two for 8-warp blocks (one block an SM: the next tile is copied while this
-// one is converted and multiplied)
-template <int WARPS>
-struct Stages {
-  static constexpr int N = WARPS == 8 ? 2 : 1;
-};
-
-template <typename KT, int KS, int WARPS>
-size_t mma_smem_bytes() {
-  using M = MmaTile<KS>;
-  return Stages<WARPS>::N * 2 * sizeof(KT) * kKeysTc * M::HDP  // K and V stages
-         + 4 * sizeof(__nv_bfloat16) * kKeysTc * M::ROW;      // K, V hi and lo
+template <typename KT, int KS>
+constexpr size_t mma_smem_bytes(int stages) {
+  return stages * 2 * sizeof(KT) * kKeysTc * MmaTile<KS>::HDP  // K and V stages
+         + 4 * sizeof(__nv_bfloat16) * kKeysTc * MmaTile<KS>::ROW;  // K, V hi and lo
 }
 
+// K/V stages in flight: one for 4-warp blocks (two blocks share an SM),
+// two for 8-warp blocks (one block an SM: the next tile is copied while this
+// one is converted and multiplied) where both fit in a block's shared
+// memory, else one (hd 160 over an fp32 cache)
 template <typename KT, int KS, int WARPS>
+struct Stages {
+  static constexpr int N = (WARPS == 8 && mma_smem_bytes<KT, KS>(2) <= kMaxSmem) ? 2 : 1;
+  static constexpr size_t kBytes = mma_smem_bytes<KT, KS>(N);
+  static_assert(kBytes <= kMaxSmem, "K/V tiles exceed a block's shared memory");
+};
+
+// VN: v's head dim a.hdv is below hd (MLA); else hdv = hd
+template <typename KT, int KS, int WARPS, bool VN>
 __global__ void __launch_bounds__(WARPS * 32, WARPS == 4 ? 2 : 1)
 flash_fwd_mma(const Args a) {
   constexpr int kThreadsW = WARPS * 32;
   using M = MmaTile<KS>;
   constexpr int HDP = M::HDP, ROW = M::ROW, NT = M::NT, KN = M::KN;
-  constexpr int STAGES = Stages<WARPS>::N, STAGE = 2 * kKeysTc * HDP;
+  constexpr int STAGES = Stages<KT, KS, WARPS>::N, STAGE = 2 * kKeysTc * HDP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   KT* stages = reinterpret_cast<KT*>(smem_raw);     // [STAGES][K, V][kKeysTc][HDP] as loaded
   __nv_bfloat16* kh = reinterpret_cast<__nv_bfloat16*>(stages + STAGES * STAGE);
@@ -557,7 +579,7 @@ flash_fwd_mma(const Args a) {
   const int t0 = blockIdx.x * a.bt;
   const int t1 = min(t0 + a.bt, a.Tq);
   const int q_off = a.Tk - a.Tq;
-  const int hd = a.hd;
+  const int hd = a.hd, hdv = VN ? a.hdv : hd;
 
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   const KT* k = static_cast<const KT*>(a.k);
@@ -589,8 +611,9 @@ flash_fwd_mma(const Args a) {
 
   const Span sp = span_of(a, t0, t1, kKeysTc);
 
-  // one K/V tile into the stage: 16-byte cp.async copies where the rows are
-  // aligned (zero-filled past Tk), else element by element
+  // one K/V tile into the stage, K hd and V hdv wide: 16-byte cp.async
+  // copies where both tensors' rows are aligned (zero-filled past Tk), else
+  // element by element
   auto load_tile = [&](int tile) {
     const int kbase = tile * kKeysTc;
     KT* k_st = stages + ((tile - sp.tile_lo) % STAGES) * STAGE;
@@ -604,7 +627,7 @@ flash_fwd_mma(const Args a) {
         const bool in = kp < a.Tk;
         const long long kq = in ? kp : 0;
         cp_async16(k_st + j * HDP + d, kb0 + kq * a.sk[2] + d, in ? 16 : 0);
-        cp_async16(v_st + j * HDP + d, vb0 + kq * a.sv[2] + d, in ? 16 : 0);
+        if (!VN || d < hdv) cp_async16(v_st + j * HDP + d, vb0 + kq * a.sv[2] + d, in ? 16 : 0);
       }
       cp_async_commit();
     } else {
@@ -614,10 +637,10 @@ flash_fwd_mma(const Args a) {
         KT kx = from_f32<KT>(0.f), vx = kx;
         if (kp < a.Tk) {
           kx = kb0[kp * a.sk[2] + d * a.sk[3]];
-          vx = vb0[kp * a.sv[2] + d * a.sv[3]];
+          if (!VN || d < hdv) vx = vb0[kp * a.sv[2] + d * a.sv[3]];
         }
         k_st[j * HDP + d] = kx;
-        v_st[j * HDP + d] = vx;
+        if (!VN || d < hdv) v_st[j * HDP + d] = vx;
       }
     }
   };
@@ -649,7 +672,7 @@ flash_fwd_mma(const Args a) {
     for (int e = tid; e < kKeysTc * (HDP / 2); e += kThreadsW) {
       const int j = e / (HDP / 2), d = (e % (HDP / 2)) * 2;
       const float2 kx = load2(k_st + j * HDP, d, hd);
-      const float2 vx = load2(v_st + j * HDP, d, hd);
+      const float2 vx = load2(v_st + j * HDP, d, hdv);
       *reinterpret_cast<__nv_bfloat162*>(kh + j * ROW + d) = __floats2bfloat162_rn(kx.x, kx.y);
       *reinterpret_cast<__nv_bfloat162*>(vh + j * ROW + d) = __floats2bfloat162_rn(vx.x, vx.y);
       k_lo |= (__float_as_uint(kx.x) | __float_as_uint(kx.y)) & 0xffffu;
@@ -665,7 +688,7 @@ flash_fwd_mma(const Args a) {
         const float2 kx = load2(k_st + j * HDP, d, hd);
         split2(kx.x, kx.y, hi, lo);
         *reinterpret_cast<uint32_t*>(kl + j * ROW + d) = lo;
-        const float2 vx = load2(v_st + j * HDP, d, hd);
+        const float2 vx = load2(v_st + j * HDP, d, hdv);
         split2(vx.x, vx.y, hi, lo);
         *reinterpret_cast<uint32_t*>(vl + j * ROW + d) = lo;
       }
@@ -756,8 +779,8 @@ flash_fwd_mma(const Args a) {
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int d = n * 8 + tig * 2;
-        if (d < hd) out[at + d * a.so[3]] = __float2bfloat16(o[n][2 * half] / denom);
-        if (d + 1 < hd) out[at + (d + 1) * a.so[3]] = __float2bfloat16(o[n][2 * half + 1] / denom);
+        if (d < hdv) out[at + d * a.so[3]] = __float2bfloat16(o[n][2 * half] / denom);
+        if (d + 1 < hdv) out[at + (d + 1) * a.so[3]] = __float2bfloat16(o[n][2 * half + 1] / denom);
       }
     } else {
       const long long row = (static_cast<long long>(b) * a.H + r.head) * a.Tq + r.t;
@@ -765,8 +788,8 @@ flash_fwd_mma(const Args a) {
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int d = n * 8 + tig * 2;
-        if (d < hd) a.part_acc[at * hd + d] = o[n][2 * half];
-        if (d + 1 < hd) a.part_acc[at * hd + d + 1] = o[n][2 * half + 1];
+        if (d < hdv) a.part_acc[at * hdv + d] = o[n][2 * half];
+        if (d + 1 < hdv) a.part_acc[at * hdv + d + 1] = o[n][2 * half + 1];
       }
       if (tig == 0) {  // flash_combine weighs the splits by exp(m) in natural units
         a.part_ml[at * 2] = m == kNegInf ? kNegInf : m * kLn2;
@@ -789,9 +812,9 @@ __global__ void flash_combine(const Args a) {
     const long long at = s * n_rows + row;
     const float w = expf(a.part_ml[at * 2] - mx);
     lsum += a.part_ml[at * 2 + 1] * w;
-    if (d < a.hd) acc += a.part_acc[at * a.hd + d] * w;
+    if (d < a.hdv) acc += a.part_acc[at * a.hdv + d] * w;
   }
-  if (d < a.hd) {
+  if (d < a.hdv) {
     const int t = static_cast<int>(row % a.Tq);
     const int head = static_cast<int>((row / a.Tq) % a.H);
     const int b = static_cast<int>(row / (static_cast<long long>(a.Tq) * a.H));
@@ -813,7 +836,7 @@ template <typename QT>
 void launch_combine(const Args& a, cudaStream_t s) {
   if (a.splits > 1) {
     const long long n_rows = static_cast<long long>(a.B) * a.H * a.Tq;
-    flash_combine<QT><<<static_cast<unsigned int>(n_rows), ((a.hd + 31) / 32) * 32, 0, s>>>(a);
+    flash_combine<QT><<<static_cast<unsigned int>(n_rows), ((a.hdv + 31) / 32) * 32, 0, s>>>(a);
   }
 }
 
@@ -838,34 +861,42 @@ cudaError_t launch_simt_hd(const Args& a, cudaStream_t s) {
     case 1: return launch_simt<1>(a, s);
     case 2: return launch_simt<2>(a, s);
     case 3: return launch_simt<3>(a, s);
+    case 4: return launch_simt<4>(a, s);
+    case 5: return launch_simt<5>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename KT, int KS, int WARPS>
+template <typename KT, int KS, int WARPS, bool VN>
 cudaError_t launch_mma_w(const Args& a, cudaStream_t s) {
-  const size_t smem = mma_smem_bytes<KT, KS, WARPS>();
+  const size_t smem = Stages<KT, KS, WARPS>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<KT, KS, WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_mma<KT, KS, WARPS, VN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flash_fwd_mma<KT, KS, WARPS><<<grid_of(a), WARPS * 32, smem, s>>>(a);
+  flash_fwd_mma<KT, KS, WARPS, VN><<<grid_of(a), WARPS * 32, smem, s>>>(a);
   launch_combine<__nv_bfloat16>(a, s);
   return cudaGetLastError();
 }
 
 // 16 query rows per warp: a block of up to 64 (group * bt) rows has 4
 // warps, of up to 128 rows 8
-template <typename KT, int KS>
+template <typename KT, int KS, bool VN = false>
 cudaError_t launch_mma(const Args& a, cudaStream_t s) {
   const int rows = a.group * a.bt;
-  if (rows <= 64) return launch_mma_w<KT, KS, 4>(a, s);
-  if (rows <= 128) return launch_mma_w<KT, KS, 8>(a, s);
+  if (rows <= 64) return launch_mma_w<KT, KS, 4, VN>(a, s);
+  if (rows <= 128) return launch_mma_w<KT, KS, 8, VN>(a, s);
   return cudaErrorInvalidValue;
 }
 
+// the smallest instantiated depth KS (16-deep slices) with KS * 16 >= hd:
+// 1..6, then 8 (hd 128) and 10 (hd 160); the slices past hd are zero. A v
+// narrower than hd takes the VN variant, built for KS 6 only (MLA's 96/64)
 template <typename KT>
 cudaError_t launch_mma_hd(const Args& a, cudaStream_t s) {
+  if (a.hdv != a.hd) {
+    return (a.hd + 15) / 16 == 6 ? launch_mma<KT, 6, true>(a, s) : cudaErrorInvalidValue;
+  }
   switch ((a.hd + 15) / 16) {
     case 1: return launch_mma<KT, 1>(a, s);
     case 2: return launch_mma<KT, 2>(a, s);
@@ -873,6 +904,10 @@ cudaError_t launch_mma_hd(const Args& a, cudaStream_t s) {
     case 4: return launch_mma<KT, 4>(a, s);
     case 5: return launch_mma<KT, 5>(a, s);
     case 6: return launch_mma<KT, 6>(a, s);
+    case 7:
+    case 8: return launch_mma<KT, 8>(a, s);
+    case 9:
+    case 10: return launch_mma<KT, 10>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -882,12 +917,15 @@ cudaError_t launch_mma_hd(const Args& a, cudaStream_t s) {
 // dtype codes: 0 = float32, 1 = bfloat16. q and out share q_dtype; k and v
 // share kv_dtype. The (q, k/v) pairs built are fp32/fp32, bf16/fp32 (the
 // serving path: bf16 activations over the fp32 cache) and bf16/bf16; bf16
-// q takes the mma body, fp32 q the simt body. Strides are in elements,
-// ordered (batch, head, t, dim). vec: K/V rows may be copied 16 bytes at a
-// time (unit stride along hd, other strides and the base 16-byte aligned).
+// q takes the mma body, fp32 q the simt body. hd is q's and k's head dim,
+// hdv (<= hd) v's and the output's; with bf16 q, hdv < hd only for hd
+// 81..96. Strides are in elements, ordered
+// (batch, head, t, dim). vec: K's and V's rows may both be copied 16 bytes
+// at a time (each with unit stride along its head dim, its other strides,
+// its width and its base 16-byte aligned).
 extern "C" int cobra_flash_attention(
     const void* q, const void* k, const void* v, void* out, void* part_acc,
-    void* part_ml, int B, int H, int KV, int Tq, int Tk, int hd,
+    void* part_ml, int B, int H, int KV, int Tq, int Tk, int hd, int hdv,
     const long long* sq, const long long* sk, const long long* sv,
     const long long* so, int causal, int window, int chunk, float scale,
     int group, int n_hgroups, int bt, int splits, int q_dtype, int kv_dtype,
@@ -905,6 +943,7 @@ extern "C" int cobra_flash_attention(
   a.Tq = Tq;
   a.Tk = Tk;
   a.hd = hd;
+  a.hdv = hdv;
   for (int i = 0; i < 4; ++i) {
     a.sq[i] = sq[i];
     a.sk[i] = sk[i];

@@ -47,7 +47,8 @@ def equi_probe(probe_keys, table_keys, key_space: Optional[int] = None):
 
 def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
               chunk: Optional[int] = None, scale: Optional[float] = None):
-    """q (B,H,Tq,hd), k/v (B,KV,Tk,hd) -> (B,H,Tq,hd); queries at the tail."""
+    """q (B,H,Tq,hd), k (B,KV,Tk,hd), v (B,KV,Tk,hdv) with hdv <= hd ->
+    (B,H,Tq,hdv); queries at the tail."""
     return flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                            scale=scale)
 

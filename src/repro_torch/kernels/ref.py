@@ -99,10 +99,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
                         chunk: Optional[int] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,H,Tq,hd), k/v (B,KV,Tk,hd), GQA broadcast, fp32 softmax; the
-    queries sit at the tail of the keys. A row with every key masked gives
-    0 (softmax over -inf is NaN, set to 0), as the kernel's max(l, 1e-30)
-    does. Returns (B,H,Tq,hd) in q's type."""
+    """q (B,H,Tq,hd), k (B,KV,Tk,hd), v (B,KV,Tk,hdv), GQA broadcast, fp32
+    softmax; the queries sit at the tail of the keys. A row with every key
+    masked gives 0 (softmax over -inf is NaN, set to 0), as the kernel's
+    max(l, 1e-30) does. Returns (B,H,Tq,hdv) in q's type (hdv = hd but for
+    MLA, whose v head is narrower)."""
     B, H, Tq, hd = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     rep = H // KV
@@ -124,7 +125,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     del scores
     p.nan_to_num_(nan=0.0)
     out = torch.einsum("bkrqs,bksh->bkrqh", p, v.float())
-    return out.reshape(B, H, Tq, hd).to(q.dtype)
+    return out.reshape(B, H, Tq, v.shape[-1]).to(q.dtype)
 
 
 def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

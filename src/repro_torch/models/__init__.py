@@ -1,5 +1,6 @@
 """Model definitions: architecture registry, layers, assembly (dense GQA/SWA
-and RWKV6 so far; the other families raise until ROADMAP A6)."""
+with RoPE or M-RoPE, MLA and RWKV6 so far; the other families raise until
+ROADMAP A2)."""
 
 from .arch import ArchConfig, get_arch, list_archs, register_arch
 from .model import forward, init_params, make_caches

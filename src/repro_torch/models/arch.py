@@ -4,7 +4,8 @@ One dataclass describes dense GQA/MLA/SWA transformers, RWKV6, Mamba2
 hybrids, MoE (top-1 and top-k), enc-dec, and modality-frontend stubs.
 ``scaled()`` produces the reduced smoke-test configs; full configs live in
 ``repro_torch.configs``. Pure Python, copied from the reference package;
-the port serves the ``dense`` (GQA/SWA) and ``rwkv6`` families.
+the port serves the ``dense`` family (GQA/SWA with RoPE or M-RoPE, and
+MLA) and ``rwkv6``.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Model layers in PyTorch (params = dictionaries of tensors).
 
-The port of ``repro.models.layers`` for the two families the port serves:
+The port of ``repro.models.layers`` for the families the port serves:
 
-  * GQA attention with RoPE, optional sliding window (SWA) and chunked local
-    attention, through :func:`repro_torch.kernels.ops.attention` (the
+  * GQA attention with RoPE or M-RoPE (Qwen2-VL), optional sliding window
+    (SWA) and chunked local attention, and MLA (multi-head latent
+    attention, MiniCPM3: the cache holds the latent, K/V are expanded from
+    it), all through :func:`repro_torch.kernels.ops.attention` (the
     hand-written CUDA kernel on the card, its plain version on the CPU);
   * SwiGLU MLP;
   * the RWKV6 time/channel mix, whose WKV recurrence goes through
@@ -18,16 +20,16 @@ norms, ``w0`` and ``u`` fp32. Random initialisation takes an explicit
 numbers; ``repro_torch.carry.params_from_numpy`` carries the reference's
 parameters across instead).
 
-MLA, MoE, Mamba2 and M-RoPE are not ported yet (ROADMAP A6): MLA and
-M-RoPE raise ``NotImplementedError`` here, the other families in
-``model.py``. Sharding policies (ROADMAP A7) are not either:
-:data:`NULL_POLICY` is the no-op the reference uses on one device.
+MoE and Mamba2 are not ported yet (ROADMAP A2): Mamba2's decay mode
+raises ``NotImplementedError`` here, the other families in ``model.py``.
+Sharding policies (ROADMAP A3) are not either: :data:`NULL_POLICY` is the
+no-op the reference uses on one device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +39,7 @@ from .arch import ArchConfig
 
 Params = Dict[str, Any]
 
-_LATER = "not ported yet (ROADMAP A6)"
+_LATER = "not ported yet (ROADMAP A2)"
 
 
 # --------------------------------------------------------------------------
@@ -88,7 +90,7 @@ def act_fn(kind: str):
 
 
 # --------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # --------------------------------------------------------------------------
 
 def rope_freqs(hd_rot: int, theta: float = 1e4, device=None) -> torch.Tensor:
@@ -97,14 +99,27 @@ def rope_freqs(hd_rot: int, theta: float = 1e4, device=None) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
-               mrope_sections=None) -> torch.Tensor:
-    """x: (B, T, H, hd). positions: (B, T)."""
-    if mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE is {_LATER}")
+               mrope_sections: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """x: (B, T, H, hd). positions: (B, T), or (B, T, 3) for M-RoPE.
+
+    M-RoPE (Qwen2-VL): the rotary half-dims are split into sections, each
+    rotated by its own position stream (temporal / height / width). For text
+    tokens the three streams coincide."""
     B, T, H, hd = x.shape
     half = hd // 2
     freqs = rope_freqs(hd, theta, device=x.device)            # (half,)
-    ang = positions[..., None].float() * freqs                 # (B,T,half)
+    if mrope_sections is None:
+        ang = positions[..., None].float() * freqs             # (B,T,half)
+    else:
+        if positions.ndim != 3 or positions.shape[-1] != len(mrope_sections):
+            raise ValueError(f"M-RoPE needs (B, T, {len(mrope_sections)}) "
+                             f"positions, got {tuple(positions.shape)}")
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(positions[..., i:i + 1].float()
+                         * freqs[start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)                          # (B,T,half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
@@ -112,14 +127,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
                       x2f * cos + x1f * sin], dim=-1).to(x.dtype)
 
 
+def default_mrope_sections(hd: int) -> Tuple[int, int, int]:
+    half = hd // 2
+    a = half // 4
+    return (half - 2 * a, a, a)  # e.g. hd=128 -> (32,16,16)
+
+
 # --------------------------------------------------------------------------
-# Attention (GQA + SWA/chunked)
+# Attention (GQA + SWA/chunked) and MLA
 # --------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(f"MLA is {_LATER}")
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if cfg.attn_kind == "mla":
+        qr = cfg.q_lora_rank or d
+        kvr = cfg.kv_lora_rank or d
+        qk_dim = cfg.qk_rope_dim + cfg.qk_nope_dim
+        dev = gen.device
+        return {
+            "wq_a": dense_init(gen, (d, qr)),
+            "q_norm": init_rms(qr, device=dev),
+            "wq_b": dense_init(gen, (qr, H * qk_dim)),
+            "wkv_a": dense_init(gen, (d, kvr + cfg.qk_rope_dim)),
+            "kv_norm": init_rms(kvr, device=dev),
+            "wkv_b": dense_init(gen, (kvr, H * (cfg.qk_nope_dim + cfg.vhd))),
+            "wo": dense_init(gen, (H * cfg.vhd, d)),
+        }
     return {
         "wq": dense_init(gen, (d, H * hd)),
         "wk": dense_init(gen, (d, KV * hd)),
@@ -173,15 +206,22 @@ def attention_gqa(params: Params, x: torch.Tensor, cfg: ArchConfig,
     cache sliced to the written slots ``[:cache_index + T]``: the kernel
     puts the queries at the tail of the keys, so their positions are
     ``cache_index + i``, and the causal / window masks equal the
-    reference's full-length masks with unwritten slots masked out."""
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError(f"M-RoPE is {_LATER}")
+    reference's full-length masks with unwritten slots masked out.
+
+    M-RoPE takes (B, T, 3) positions, or (B, T) ones repeated to the three
+    streams (text tokens), as the reference does."""
     B, T, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ params["wq"]).view(B, T, H, hd)
     k = (x @ params["wk"]).view(B, T, KV, hd)
     v = (x @ params["wv"]).view(B, T, KV, hd)
-    if cfg.rope_kind == "rope":
+    if cfg.rope_kind == "mrope":
+        secs = default_mrope_sections(hd)
+        pos3 = positions if positions.ndim == 3 else \
+            positions[..., None].expand(*positions.shape, 3)
+        q = apply_rope(q, pos3, mrope_sections=secs)
+        k = apply_rope(k, pos3, mrope_sections=secs)
+    elif cfg.rope_kind == "rope":
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
     if cache is not None:
@@ -193,6 +233,58 @@ def attention_gqa(params: Params, x: torch.Tensor, cfg: ArchConfig,
     out = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=True, window=cfg.window, chunk=cfg.chunk_size)
     y = out.transpose(1, 2).reshape(B, T, H * hd) @ params["wo"]
+    return y, cache
+
+
+def attention_mla(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor, cache: Optional[Dict] = None,
+                  cache_index=None, pol=NULL_POLICY):
+    """MLA: KV compressed to a latent of kv_lora_rank (+ one shared rope
+    key). Returns (out, cache); cache {"lat": (B, S_max, kv_lora_rank),
+    "rope": (B, S_max, qk_rope_dim)} holds the latent, not K/V.
+
+    As in :func:`attention_gqa`, the cache is written IN PLACE at
+    ``cache_index`` and the same dictionary is returned; K and V are
+    expanded from the latent over the written slots ``[:cache_index + T]``
+    only, and the kernel runs with q·k head dim ``qk_nope + qk_rope`` and v
+    head dim ``v_head_dim`` (96 and 64 for minicpm3-4b) at the reference's
+    scale 1/sqrt(qk_nope + qk_rope). Types follow jnp's promotion: the
+    latent read from an fp32 cache makes K/V fp32 under bf16 queries."""
+    B, T, d = x.shape
+    H = cfg.n_heads
+    nope, rdim, vhd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.vhd
+    kvr = cfg.kv_lora_rank or d
+
+    q_lat = rms_norm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps)
+    q = (q_lat @ params["wq_b"]).view(B, T, H, nope + rdim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions)
+
+    kv_all = x @ params["wkv_a"]                       # (B,T,kvr+rdim)
+    kv_lat = rms_norm(kv_all[..., :kvr], params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv_all[..., kvr:][:, :, None, :], positions)[:, :, 0]
+
+    if cache is not None:
+        idx = int(cache_index)
+        cache["lat"][:, idx:idx + T].copy_(kv_lat)
+        cache["rope"][:, idx:idx + T].copy_(k_rope)
+        kv_lat = cache["lat"][:, :idx + T]
+        k_rope = cache["rope"][:, :idx + T]
+    Tk = kv_lat.shape[1]
+
+    # in the type jnp promotes the pair to (the fp32 latent times bf16
+    # weights is an fp32 product); torch refuses mixed-type products
+    dt = torch.promote_types(kv_lat.dtype, params["wkv_b"].dtype)
+    kv = (kv_lat.to(dt) @ params["wkv_b"].to(dt)).view(B, Tk, H, nope + vhd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].to(k_nope.dtype)
+                   .expand(B, Tk, H, rdim)], dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    out = ops.attention(qfull.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, window=cfg.window,
+                        chunk=cfg.chunk_size,
+                        scale=1.0 / math.sqrt(nope + rdim))
+    y = out.transpose(1, 2).reshape(B, T, H * vhd) @ params["wo"]
     return y, cache
 
 

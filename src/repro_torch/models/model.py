@@ -1,5 +1,6 @@
 """Model assembly: init, forward, prefill/decode, for the families the port
-serves (``dense`` GQA/SWA transformers and ``rwkv6``).
+serves (``dense`` transformers: GQA/SWA with RoPE or M-RoPE, and MLA; and
+``rwkv6``).
 
 The port of ``repro.models.model``. The reference runs its layer stacks
 under ``jax.lax.scan`` over stacked parameters; here ``params["layers"]``
@@ -8,10 +9,15 @@ is a list of per-layer dictionaries and the stack is a Python loop.
 Caches (decode), one tensor per kind with the layer index first, updated
 IN PLACE by :func:`forward` (which returns the same dictionary):
   gqa      {"k","v"}                      (L, B, S_max, KV, hd)
+  mla      {"lat","rope"}                 (L, B, S_max, kvr | rdim)  (the latent)
   rwkv6    {"shift_t","shift_c","wkv"}    (L, B, d) / (L, B, H, hd, hd)
 
-MLA, MoE, Mamba2/Zamba2 and encoder-decoder models raise
-``NotImplementedError`` (ROADMAP A6); the training losses (``lm_loss``,
+Modality frontends are stubs, as in the reference: a vision model
+(qwen2-vl) takes precomputed patch embeddings (B, T, d_model) as inputs
+in place of tokens.
+
+MoE, Mamba2/Zamba2 and encoder-decoder models raise
+``NotImplementedError`` (ROADMAP A2); the training losses (``lm_loss``,
 ``loss_fn``) are not ported yet.
 """
 
@@ -22,15 +28,15 @@ from typing import Any, Dict
 import torch
 
 from .arch import ArchConfig
-from .layers import (NULL_POLICY, attention_gqa, embed, init_attention,
-                     init_embed, init_mlp, init_rms, init_rwkv6, mlp,
-                     rms_norm, rwkv6_block, unembed)
+from .layers import (NULL_POLICY, attention_gqa, attention_mla, embed,
+                     init_attention, init_embed, init_mlp, init_rms,
+                     init_rwkv6, mlp, rms_norm, rwkv6_block, unembed)
 
 __all__ = ["init_params", "make_caches", "forward"]
 
 Params = Dict[str, Any]
 
-_LATER = "not ported yet (ROADMAP A6)"
+_LATER = "not ported yet (ROADMAP A2)"
 
 
 def _kind(cfg: ArchConfig) -> str:
@@ -42,7 +48,7 @@ def _kind(cfg: ArchConfig) -> str:
         raise NotImplementedError(f"{cfg.ssm_kind} models are {_LATER}")
     if cfg.moe:
         raise NotImplementedError(f"MoE models are {_LATER}")
-    if cfg.attn_kind != "gqa":
+    if cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.attn_kind} attention is {_LATER}")
     return "dense"
 
@@ -86,6 +92,12 @@ def make_caches(cfg: ArchConfig, batch: int, s_max: int,
                 "shift_c": torch.zeros((L, B, d), dtype=dtype, device=device),
                 "wkv": torch.zeros((L, B, H, hd, hd), dtype=torch.float32,
                                    device=device)}
+    if cfg.attn_kind == "mla":
+        L = cfg.n_layers
+        return {"lat": torch.zeros((L, B, s_max, cfg.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "rope": torch.zeros((L, B, s_max, cfg.qk_rope_dim),
+                                    dtype=dtype, device=device)}
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     # absolute positions; the window masks reads (as in the reference)
     return {"k": torch.zeros((L, B, s_max, KV, hd), dtype=dtype, device=device),
@@ -97,8 +109,9 @@ def make_caches(cfg: ArchConfig, batch: int, s_max: int,
 # --------------------------------------------------------------------------
 
 def _dense_block(bp, h, cfg, positions, cache, idx, pol):
-    a, _ = attention_gqa(bp["attn"], rms_norm(h, bp["ln1"], cfg.norm_eps),
-                         cfg, positions, cache, idx, pol)
+    attn_fn = attention_mla if cfg.attn_kind == "mla" else attention_gqa
+    a, _ = attn_fn(bp["attn"], rms_norm(h, bp["ln1"], cfg.norm_eps),
+                   cfg, positions, cache, idx, pol)
     h = h + a
     return h + mlp(bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps), cfg.act,
                    pol)
@@ -109,7 +122,8 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
             pol=NULL_POLICY, enc_inputs=None):
     """Returns (logits, caches, aux_loss).
 
-    inputs: int tokens (B,T) (int32 or int64) or embeddings (B,T,d).
+    inputs: int tokens (B,T) (int32 or int64) or precomputed embeddings
+    (B,T,d) from a stubbed modality frontend (qwen2-vl's vision patches).
     With ``caches`` the step writes its keys/values (or recurrent state)
     into them in place at ``cache_index`` and returns the same dictionary."""
     if enc_inputs is not None:
@@ -123,7 +137,7 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
     for l, bp in enumerate(params["layers"]):
         if kind == "dense":
             cache_l = None if caches is None else \
-                {"k": caches["k"][l], "v": caches["v"][l]}
+                {name: c[l] for name, c in caches.items()}
             h = _dense_block(bp, h, cfg, positions, cache_l, idx, pol)
         else:
             state = None if caches is None else \

@@ -28,13 +28,26 @@ runs where only torch is installed::
     random fp32 cache (taken), Tq and Tk off the 16 / 64 tile sizes, hd
     16 / 32 / 64 / 80, the chunk mask and decode, and the branches off the
     serving shapes: hd 45 and 96 and K/V rows off 16 bytes;
+  * the wide heads, hd 128 (internlm2-20b, qwen2-vl-72b) and 160
+    (stablelm-12b), and the head dims padded up to them (112, 144), in
+    both bodies, at prefill (two K/V stages, and the one-stage 8-warp
+    blocks at hd 160 over fp32), at split-key decode, over strided cache
+    views and rows off 16 bytes; and MLA's v head narrower than its q.k
+    head (hd 96, hdv 64; v a strided slice of the expanded latent), other
+    narrower v widths (hd 88 and 96 on the tensor cores, 128 and 160 on
+    the CUDA cores), and the refusal of a narrower v at another
+    tensor-core depth;
   * ``rwkv6_scan``: the reference's scan sweep, from zero and from a given
     state, ragged T, one-token decode, extreme decay, within 1e-3 fp32 and
     3e-2 bf16; and the chunk-parallel scan over several chunks with a
     ragged tail, over rows off 16 bytes, and the -40 decay across a chunk
     boundary;
   * a scaled ``Server.generate`` on the card against the same server on
-    the CPU (fp32 parameters: the same tokens, logits within 1e-3);
+    the CPU (fp32 parameters: the same tokens, logits within 1e-3), for
+    danube, rwkv6, qwen2-vl (M-RoPE) and minicpm3 (MLA), and for
+    internlm2-20b and stablelm-12b at 2 layers with their published head
+    dims 128 and 160; with bf16 parameters (the tensor-core body) those two
+    are held to the same model with the plain attention on the card;
   * the serving loop on the card: the drift flip (join -> prefetch) with
     the compiled tier on, equal to the same stream on the CPU, and the
     programs as written launching the relational kernels inside it;
@@ -58,6 +71,7 @@ from repro_torch.cluster import ClusterRuntime, ShardedDatabase
 from repro_torch.core import CostCatalog
 from repro_torch.kernels import build, ops, ref
 from repro_torch.launch import serve
+from repro_torch.models import forward, get_arch, init_params, make_caches
 from repro_torch.programs import (make_orders_customer_db, make_p0,
                                   make_wilos_b, make_wilos_db, make_wilos_e,
                                   make_wilos_f)
@@ -361,6 +375,132 @@ def test_flash_attention_at_decode(cuda, exact):
                     4096, None, seed=1, bf16_cache=exact)
 
 
+# (B, H, KV, Tq, Tk, hd, q dtype, kv dtype, bf16-exact cache, K/V rows off
+# 16 bytes, window): the wide heads. fp32 q takes the CUDA-core body (HC 4
+# and 5), bf16 q the tensor cores (KS 8 and 10; hd 112 and 144 padded up)
+ATTN_WIDE = [
+    (1, 8, 2, 130, 130, 128, "float32", "float32", False, False, None),
+    (2, 8, 2, 1, 700, 128, "float32", "float32", False, False, 512),
+    (1, 8, 2, 300, 300, 128, "bfloat16", "float32", False, False, 256),
+    (1, 8, 2, 300, 300, 128, "bfloat16", "float32", True, False, None),
+    (1, 8, 2, 200, 333, 128, "bfloat16", "bfloat16", False, False, None),
+    (2, 16, 2, 1, 1500, 128, "bfloat16", "float32", True, False, 1024),
+    (1, 8, 2, 200, 200, 128, "bfloat16", "float32", False, True, None),
+    (1, 4, 2, 100, 100, 160, "float32", "float32", False, False, None),
+    (1, 8, 2, 300, 300, 160, "bfloat16", "float32", False, False, None),
+    (1, 8, 2, 300, 300, 160, "bfloat16", "float32", True, False, 128),
+    (1, 8, 2, 150, 150, 160, "bfloat16", "bfloat16", False, False, None),
+    (2, 8, 2, 1, 1500, 160, "bfloat16", "float32", False, False, None),
+    (1, 8, 2, 200, 200, 160, "bfloat16", "bfloat16", False, True, None),
+    (1, 4, 2, 100, 100, 112, "bfloat16", "float32", False, False, None),
+    (1, 4, 2, 1, 200, 144, "bfloat16", "float32", False, False, None),
+    (1, 4, 2, 70, 70, 144, "float32", "float32", False, False, 32),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Tq,Tk,hd,q_dt,kv_dt,exact,offset,window",
+                         ATTN_WIDE)
+def test_flash_attention_wide_heads(cuda, B, H, KV, Tq, Tk, hd, q_dt, kv_dt,
+                                    exact, offset, window):
+    _attention_case(cuda, B, H, KV, Tq, Tk, hd, q_dt, kv_dt, True, window,
+                    None, seed=Tq + hd, bf16_cache=exact, offset=offset)
+
+
+@pytest.mark.parametrize("hd,q_dt", [(128, "bfloat16"), (160, "bfloat16"),
+                                     (160, "float32")])
+def test_flash_attention_wide_heads_over_cache_views(cuda, hd, q_dt):
+    # the serving layout: q the (B,T,H,hd) projection, k/v slices of the
+    # (2, B, S, KV, hd) fp32 cache, all seen as (B,H,T,hd) without a copy
+    B, T, H, KV, S, used = 2, 7, 8, 2, 40, 30
+    rng = np.random.default_rng(hd)
+    q = _on(rng.standard_normal((B, T, H, hd)), cuda, q_dt)
+    cache = _on(rng.standard_normal((2, B, S, KV, hd)), cuda)
+    k = cache[0, :, :used].transpose(1, 2)
+    v = cache[1, :, :used].transpose(1, 2)
+    got = ops.attention(q.transpose(1, 2), k, v, window=16)
+    want = ref.flash_attention_ref(q.transpose(1, 2).contiguous(),
+                                   k.contiguous(), v.contiguous(), window=16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ATTN_KERNEL_TOL[q_dt])
+    assert got.transpose(1, 2).is_contiguous()
+
+
+def _mla_inputs(cuda, B, H, Tq, Tk, q_dt, kv_dt, nope=64, rdim=32, vhd=64,
+                seed=0):
+    """MLA's attention inputs as ``attention_mla`` makes them: q
+    (B,H,Tq,nope+rdim); the expanded latent kv (B,Tk,H,nope+vhd), k its
+    nope part with the shared rope key appended (B,H,Tk,nope+rdim), v a
+    strided slice of it (B,H,Tk,vhd)."""
+    rng = np.random.default_rng(seed)
+    q = _on(rng.standard_normal((B, Tq, H, nope + rdim)), cuda, q_dt)
+    kv = _on(rng.standard_normal((B, Tk, H, nope + vhd)), cuda, kv_dt)
+    rope = _on(rng.standard_normal((B, Tk, 1, rdim)), cuda, kv_dt)
+    k = torch.cat([kv[..., :nope], rope.expand(B, Tk, H, rdim)], dim=-1)
+    v = kv[..., nope:]
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,q_dt,kv_dt", [
+    (1, 8, 300, 300, "bfloat16", "float32"),    # prefill over the cache
+    (1, 8, 200, 200, "bfloat16", "bfloat16"),   # prefill without a cache
+    (2, 40, 1, 900, "bfloat16", "float32"),     # decode: split keys
+    (1, 4, 100, 100, "float32", "float32"),     # the CUDA-core body
+    (2, 4, 1, 333, "float32", "float32"),
+])
+def test_flash_attention_mla_head_dims(cuda, B, H, Tq, Tk, q_dt, kv_dt):
+    q, k, v = _mla_inputs(cuda, B, H, Tq, Tk, q_dt, kv_dt, seed=Tk)
+    assert (k.shape[-1], v.shape[-1]) == (96, 64) and not v.is_contiguous()
+    scale = 1.0 / np.sqrt(96)
+    got = ops.attention(q, k, v, causal=True, scale=scale)
+    want = ref.flash_attention_ref(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, Tq, 64) and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ATTN_KERNEL_TOL[q_dt])
+
+
+@pytest.mark.parametrize("hd,hdv,q_dt", [
+    (88, 40, "bfloat16"),    # the narrow-v variant at another width of KS 6
+    (96, 96 - 16, "bfloat16"),
+    (128, 64, "float32"),    # the CUDA-core body takes any hdv <= hd
+    (160, 24, "float32"),
+])
+def test_flash_attention_narrow_v_widths(cuda, hd, hdv, q_dt):
+    rng = np.random.default_rng(hd + hdv)
+    B, H, KV, Tq, Tk = 2, 8, 2, 70, 90
+    q = _on(rng.standard_normal((B, H, Tq, hd)), cuda, q_dt)
+    k = _on(rng.standard_normal((B, KV, Tk, hd)), cuda)
+    v = _on(rng.standard_normal((B, KV, Tk, hdv)), cuda)
+    got = ops.attention(q, k, v, window=50)
+    want = ref.flash_attention_ref(q, k, v, window=50)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, Tq, hdv)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ATTN_KERNEL_TOL[q_dt])
+
+
+def test_flash_attention_rejects_v_wider_than_k(cuda):
+    q = torch.zeros(1, 2, 4, 32, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 4, 32, device=cuda)
+    with pytest.raises(ValueError, match="hdv <= hd"):
+        ops.attention(q, k, torch.zeros(1, 2, 4, 48, device=cuda))
+    with pytest.raises(ValueError, match="hdv <= hd"):
+        ops.attention(q, k, torch.zeros(1, 2, 5, 32, device=cuda))
+    with pytest.raises(ValueError, match="head dim 192"):
+        ops.attention(torch.zeros(1, 2, 4, 192, device=cuda,
+                                  dtype=torch.bfloat16),
+                      torch.zeros(1, 2, 4, 192, device=cuda),
+                      torch.zeros(1, 2, 4, 192, device=cuda))
+    # on the tensor cores a narrower v is built for MLA's depth only
+    for hd in (64, 128, 160):
+        with pytest.raises(ValueError, match="only for hd 81..96"):
+            ops.attention(torch.zeros(1, 2, 4, hd, device=cuda,
+                                      dtype=torch.bfloat16),
+                          torch.zeros(1, 2, 4, hd, device=cuda),
+                          torch.zeros(1, 2, 4, hd // 2, device=cuda))
+
+
 def test_flash_attention_reads_strided_views(cuda):
     B, T, H, KV, hd, S = 2, 7, 8, 2, 80, 20
     rng = np.random.default_rng(0)
@@ -457,6 +597,83 @@ def test_server_on_the_card_equals_the_cpu(cuda, arch):
     assert got == cpu.generate(prompts)
     for a, b in zip(card.step_logits, cpu.step_logits):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "minicpm3-4b"])
+def test_mrope_and_mla_servers_on_the_card_equal_the_cpu(cuda, arch):
+    test_server_on_the_card_equals_the_cpu(cuda, arch)
+
+
+# internlm2-20b and stablelm-12b at 2 layers with their published head dims
+WIDE_HEAD_ARCHS = {"internlm2-20b": (512, 128), "stablelm-12b": (640, 160)}
+
+
+def _wide_head_arch(name):
+    d_model, hd = WIDE_HEAD_ARCHS[name]
+    cfg = get_arch(name).scaled(n_layers=2, d_model=d_model, n_heads=4)
+    assert cfg.hd == hd == get_arch(name).hd
+    return cfg
+
+
+@pytest.mark.parametrize("arch", sorted(WIDE_HEAD_ARCHS))
+def test_wide_head_servers_on_the_card_equal_the_cpu(cuda, arch):
+    # fp32 parameters: the CUDA-core body at HC 4 / 5, tokens equal to the
+    # CPU's and logits within 1e-3, as for the smoke-scale servers
+    cfg = _wide_head_arch(arch)
+    params = _tree(lambda t: t.float(), init_params(
+        torch.Generator().manual_seed(0), cfg))
+    scfg = serve.ServeConfig(arch=arch, max_new_tokens=4, max_seq=40)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 30, 4)]
+    cpu = serve.Server(scfg, params=params, device="cpu")
+    card = serve.Server(scfg, params=_tree(lambda t: t.to(cuda), params),
+                        device=cuda)
+    cpu.arch = card.arch = cfg
+    ops.reset_launch_counts()
+    got = card.generate(prompts)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers * 4
+    assert got == cpu.generate(prompts)
+    for a, b in zip(card.step_logits, cpu.step_logits):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", sorted(WIDE_HEAD_ARCHS))
+def test_wide_head_models_in_bf16_on_the_card(cuda, arch, monkeypatch):
+    # bf16 parameters, fp32 cache (the serving types): the tensor-core body
+    # at KS 8 / 10. A prefill and three decode steps of given tokens, with
+    # the kernel and with the plain attention, both on the card: the bf16
+    # attention outputs differ by one bf16 rounding, which the two bf16
+    # layers carry to logits of magnitude ~1 within 0.05
+    cfg = _wide_head_arch(arch)
+    params = _tree(lambda t: t.to(cuda), init_params(
+        torch.Generator().manual_seed(0), cfg))
+    rng = np.random.default_rng(2)
+    B, P, T = 2, 70, 73
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)),
+                           dtype=torch.int32, device=cuda)
+    pos = torch.arange(T, dtype=torch.int32, device=cuda)[None].expand(B, T)
+
+    def run():
+        caches = make_caches(cfg, B, T, dtype=torch.float32, device=cuda)
+        out, _, _ = forward(params, cfg, toks[:, :P], pos[:, :P],
+                            caches=caches, cache_index=0)
+        steps = [out]
+        for t in range(P, T):
+            lg, _, _ = forward(params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
+                               caches=caches, cache_index=t)
+            steps.append(lg)
+        return torch.cat(steps, dim=1).float()
+
+    ops.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers * (T - P + 1)
+    monkeypatch.setattr(ops, "attention", ref.flash_attention_ref)
+    want = run()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0.05, atol=0.05)
 
 
 # --------------------------------------------------------------------------

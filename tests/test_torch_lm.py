@@ -390,12 +390,11 @@ def test_params_from_numpy_keeps_bf16_bits():
     assert params["layers"][0]["rwkv"]["u"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("name", ["minicpm3-4b", "llama4-scout-17b-a16e",
-                                  "zamba2-1.2b", "seamless-m4t-large-v2",
-                                  "qwen2-vl-72b"])
+@pytest.mark.parametrize("name", ["llama4-scout-17b-a16e", "zamba2-1.2b",
+                                  "seamless-m4t-large-v2"])
 def test_families_not_ported_yet_raise(name):
     cfg = get_arch(name).scaled()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         params = init_params(torch.Generator().manual_seed(0), cfg)
         toks, pos = _tokens(cfg, 1, 4)
         forward(params, cfg, torch.from_numpy(toks), torch.from_numpy(pos))
