@@ -30,6 +30,15 @@ just after:
     in the phase's line), and minicpm3-4b (MLA: the latent cache, q.k head
     dim 96 and v head dim 64) at full width and depth, both through
     ``flash_attention``;
+  * the same traffic through the last four families, all through
+    ``flash_attention``: zamba2-1.2b (Mamba2 layers and one shared
+    attention block at 6 sites) and seamless-m4t-large-v2 (its encoder,
+    without a causal mask, over 4 x 4,608 seeded frame embeddings at the
+    prefill, then decoder self and cross attention) at full width and
+    depth; llama4-scout-17b-a16e (MoE, 16 experts, top-1) at published
+    width cut to 13 of 48 layers, and kimi-k2-1t-a32b (MoE, all 384
+    experts, top-8) cut to its first 2 of 61 layers (cuts listed in the
+    lines' ``reduced``);
   * one ``CobraSession.plan_step`` report of the step planner under the
     port's default hardware table (one H100 SXM), on the host.
 
@@ -96,6 +105,17 @@ LOGIT_ATOL_LAYERS = 32
 # weights; with the fp32 cache (3.6 GB) and the prefill's logits and MLP
 # activations (~10 GB) they fit in 80 GB, and the published width stays
 QWEN2_VL_LAYERS = 24
+# llama4-scout-17b-a16e's depth on one card: 48 layers are 215.5 GB of bf16
+# weights (ArchConfig.n_params, embeddings included). On an H100 80GB (85.0
+# GB of device memory) 12 layers (57.0 GB) peaked at 67.1 GB over the
+# phase's serves, 13 (61.4 GB) at 75.8 GB, 9.2 GB free: the prefill's 7.3
+# GB of bf16 logits (4 x 4,500 x 202,048), the fp32 cache and the MoE
+# buffers on top. 14 (65.8 GB) would leave at most 4.8 GB
+LLAMA4_LAYERS = 13
+# kimi-k2-1t-a32b's first 2 of 61 layers: the dense one and one MoE layer
+# with all 384 experts, top-8 and the shared expert, 39.9 GB (3 layers
+# would be 74.1 GB); no expert is cut
+KIMI_LAYERS = 2
 
 
 def logit_atol(peak: float, layers: int) -> float:
@@ -373,6 +393,25 @@ ATTN_SWEEP = [
     (1, 32, 8, 4500, 4500, 160, "float32", "float32", True, None, None),
     (4, 32, 8, 1, 4531, 160, "bfloat16", "float32", True, None, None),
     (4, 32, 8, 1, 4531, 160, "float32", "float32", True, None, None),
+    # no causal mask, bf16 queries (seamless-m4t: H = KV = 16, hd 64): the
+    # encoder over 4 x 4,608 frames (K/V bf16, not cached), the cross
+    # attention at prefill (a ragged Tq 4,500 < Tk 4,608) and at decode over
+    # the fp32 cross cache, holding bf16 values or not; small ragged Tq <
+    # Tk and Tq > Tk
+    (4, 16, 16, 4608, 4608, 64, "bfloat16", "bfloat16", False, None, None),
+    (4, 16, 16, 4500, 4608, 64, "bfloat16", "bf16_in_float32", False, None,
+     None),
+    (4, 16, 16, 1, 4608, 64, "bfloat16", "bf16_in_float32", False, None, None),
+    (4, 16, 16, 1, 4608, 64, "bfloat16", "float32", False, None, None),
+    (1, 4, 4, 77, 300, 64, "bfloat16", "float32", False, None, None),
+    (1, 4, 2, 300, 77, 64, "bfloat16", "float32", False, None, None),
+    # zamba2's shared block (H = KV = 32, hd 64) and llama4-scout (H 40 /
+    # KV 8, hd 128, chunk 8,192: inactive below 8,192 keys) at their serving
+    # prefill and decode
+    (1, 32, 32, 4500, 4500, 64, "bfloat16", "float32", True, None, None),
+    (4, 32, 32, 1, 4531, 64, "bfloat16", "float32", True, None, None),
+    (1, 40, 8, 4500, 4500, 128, "bfloat16", "float32", True, None, 8192),
+    (4, 40, 8, 1, 4531, 128, "bfloat16", "float32", True, None, 8192),
 ]
 # MLA (minicpm3-4b: H = KV = 40, q.k head dim 64 + 32 = 96, v head dim 64)
 # as attention_mla hands it over: k the expanded latent's nope part with the
@@ -963,23 +1002,116 @@ def _moved(snap, device):
             "out": mv(snap["out"])}
 
 
+def _n_sites(arch) -> int:
+    """Application sites of Zamba2's shared attention block."""
+    return max(1, arch.n_layers // max(1, arch.hybrid_every))
+
+
+def _launches_per_serve(arch) -> int:
+    """Kernel launches of one serve (a prefill and NEW_TOKENS - 1 decode
+    steps), by family: one a layer and step (the RWKV6 scan, or attention);
+    Zamba2's one shared attention block once a site and step; an
+    encoder-decoder model's encoder once a layer at the prefill, then
+    decoder self and cross attention once a layer and step each."""
+    if arch.enc_dec:
+        return arch.n_enc_layers + 2 * arch.n_dec_layers * NEW_TOKENS
+    if arch.shared_attn:
+        return _n_sites(arch) * NEW_TOKENS
+    return arch.n_layers * NEW_TOKENS
+
+
+def _depth(arch) -> int:
+    """Blocks a token's logits pass through (``logit_atol``'s layers): the
+    encoder's and the decoder's of an encoder-decoder model, Zamba2's Mamba2
+    layers and its shared block's sites."""
+    if arch.enc_dec:
+        return arch.n_enc_layers + arch.n_dec_layers
+    if arch.shared_attn:
+        return arch.n_layers + _n_sites(arch)
+    return arch.n_layers
+
+
+def _speech_server(server, frames):
+    """``server`` with the encoder run at its prefill. ``Server.generate``
+    passes no encoder inputs, as the reference's does (an encoder-decoder
+    model served through it decodes over a zero cross cache), so here each
+    step drives ``models.forward`` itself: the stubbed speech frontend's
+    frame embeddings as ``enc_inputs`` at the prefill (cache index 0),
+    which writes the cross K/V into the cache, and None at each decode
+    step, which reads them there."""
+    from repro_torch.models import forward
+
+    def step(caches, cache_index, tokens, positions):
+        enc = server.frames if cache_index == 0 else None
+        logits, caches, _ = forward(server.params, server.arch, tokens,
+                                    positions, caches=caches,
+                                    cache_index=cache_index, enc_inputs=enc)
+        return logits, caches
+
+    server.frames = frames
+    server._step = step
+    return server
+
+
+class _Routing:
+    """Wraps ``layers.moe_dispatch`` while the ``with`` block runs: keeps
+    each call's experts (n, k) and counts its assignments dropped past
+    their expert's capacity. With ``replay`` (another run's ``experts``,
+    call by call) it routes each call to the recorded experts instead (the
+    router's probabilities there still give the gates)."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.orig = layers, layers.moe_dispatch
+        self.experts, self.dropped = [], []
+        pinned = None if self.replay is None else iter(self.replay)
+
+        def dispatch(params, xf, cfg, gate_idx=None):
+            if pinned is not None:
+                gate_idx = next(pinned).to(xf.device)
+            out = self.orig(params, xf, cfg, gate_idx)
+            self.experts.append(out[2].view(-1, cfg.top_k))
+            self.dropped.append(int((~out[3]).sum()))
+            return out
+
+        layers.moe_dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_dispatch = self.orig
+
+
 def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
     """``Server.generate`` at the full published configuration (with
     ``layers``, its published width cut to that many layers: the server
     gets parameters drawn for the cut configuration, the same seed): prefill
-    of the 4 right-padded prompts, then batched greedy decode. A first run
-    captures the kernel's inputs; its prefill's layer-0 output is held to
-    the plain version per request. A second run, with nothing wrapped, is
-    the timed main path: its launch count, and its decode logits of the
-    unpadded request against a full forward of that prompt plus its
-    generated tokens, are checked. Through ``flash_attention`` a third run,
-    with the plain attention in place of the kernel, reads the same
-    decode error as a witness (reported, not checked)."""
+    of the 4 right-padded prompts, then batched greedy decode. An
+    encoder-decoder model's prefill also runs its encoder over 4 x MAX_SEQ
+    seeded frame embeddings (``_speech_server``). A first run captures the
+    kernel's inputs; its prefill's first kernel output (layer 0; the
+    encoder's) is held to the plain version per request. A second run, with
+    nothing wrapped, is the timed main path: its launch count (the family's,
+    ``_launches_per_serve``), and its decode logits, are checked. The decode
+    logits of the unpadded request are held to a full forward of that
+    prompt plus its generated tokens, and, through ``flash_attention``, a
+    third run with the plain attention in place of the kernel reads the
+    same decode error as a witness (reported). Zamba2's check runs on an
+    fp32 copy of its weights (its bf16 errors are reported: see below).
+    MoE models hold the served logits to the plain attention's serve
+    instead, fed the served tokens and routed to the served run's experts
+    (the same serve with its own routing, and its routing flips, are
+    reported beside it): the capacity depends on the tokens a call holds,
+    so a full forward of one request drops other assignments than the
+    batch; the full forward's error is reported beside the overflow counts
+    of both, and held only where both are 0."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.serve import ServeConfig, Server
-    from repro_torch.models import forward, get_arch, init_params, make_caches
+    from repro_torch.models import get_arch, init_params, make_caches
     cfg = ServeConfig(arch=arch_name, scale=SCALE, max_batch=len(PROMPT_LENS),
                       max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS, seed=0)
     reduced = []
@@ -993,29 +1125,39 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
         server = Server(cfg, params=init_params(gen, cut), device=DEVICE)
         server.arch = cut
         reduced.append(f"n_layers {full.n_layers} -> {layers}")
+    arch = server.arch
+    if arch.enc_dec:
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        _speech_server(server, torch.randn(
+            (len(PROMPT_LENS), MAX_SEQ, arch.d_model), generator=gen,
+            device=DEVICE).bfloat16())
     sync()
     init_s = time.perf_counter() - t0
-    arch = server.arch
     n_params = sum(t.numel() for t in _leaves(server.params))
     rng = np.random.default_rng(2024)
     prompts = [rng.integers(0, arch.vocab_size, n).astype(np.int32)
                for n in PROMPT_LENS]
 
-    want_launches = arch.n_layers * NEW_TOKENS
+    want_launches = _launches_per_serve(arch)
+    peaks = {}
 
     # a first run through the capture, which keeps the kernel's inputs and
-    # output at the prefill's layer 0 and at the last decode step
+    # output at the prefill's first call and at the last decode call (and,
+    # for MoE, each call's experts and dropped assignments)
+    torch.cuda.reset_peak_memory_stats()
     with _Capture(ops, entry,
-                  clone=("state",) if kernel == "rwkv6_scan" else ()) as cap:
+                  clone=("state",) if kernel == "rwkv6_scan" else ()) as cap, \
+            _Routing() as served_routing:
         ops.reset_launch_counts()
         capture_outs = server.generate(prompts)
         sync()
         capture_launches = ops.launch_counts()[kernel]
+    peaks["capture"] = torch.cuda.max_memory_allocated() / 1e9
     check(capture_launches == want_launches,
           f"{arch_name} (capture run): {kernel} launched {capture_launches} "
           f"times, not {want_launches}")
 
-    # the prefill's layer-0 kernel output against the plain version, per
+    # the prefill's first kernel output against the plain version, per
     # request (the plain version's scores of one request fit the card)
     prefill_errs = []
     a = cap.first
@@ -1047,44 +1189,120 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
     sync()
     wall_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peaks["main"] = torch.cuda.max_memory_allocated() / 1e9
     t = dict(server.timing)   # the witness's serve below times itself too
     check(launches[kernel] == want_launches,
           f"{arch_name}: {kernel} launched {launches[kernel]} times, "
           f"not {want_launches}")
     check([len(o) for o in outs] == [NEW_TOKENS] * len(PROMPT_LENS),
           f"{arch_name}: wrong number of new tokens")
+    served_all = torch.stack(server.step_logits).float()   # (steps, B, V)
 
     # decode logits of the unpadded (longest) request against a full
     # forward of its prompt and generated tokens
-    served, full_steps = _decode_and_full_forward(server, prompts, outs)
+    with _Routing() as full_routing:
+        served, full_steps = _decode_and_full_forward(server, prompts, outs)
     decode_err = float((full_steps - served).abs().max())
     peak = float(full_steps.abs().max())
-    atol = logit_atol(peak, arch.n_layers)
-    check(bool(torch.isfinite(served).all()), f"{arch_name}: non-finite logits")
-    check(decode_err <= atol,
-          f"{arch_name}: decode logits differ from the full forward by "
-          f"{decode_err} > {atol} (logits peak at {peak})")
+    depth = _depth(arch)
+    atol = logit_atol(peak, depth)
+    check(bool(torch.isfinite(served_all).all()),
+          f"{arch_name}: non-finite logits")
     j = int(np.argmax(PROMPT_LENS))
     greedy_agree = float((full_steps.argmax(-1).cpu()
                           == torch.as_tensor(outs[j])).float().mean())
     del served, full_steps
-    # the witness: the same serve and check with the plain attention in
-    # place of the kernel, so that the model's own bf16 rounding (another
-    # matmul shape at decode than in the full forward) is read apart from
-    # the kernel's
-    plain_err = None
+    n_moe = arch.n_layers - arch.n_dense_layers if arch.moe else 0
+    overflow = None
+    if arch.moe:
+        overflow = {"served_prefill": sum(served_routing.dropped[:n_moe]),
+                    "served_decode": sum(served_routing.dropped[n_moe:]),
+                    "full_forward": sum(full_routing.dropped)}
+    decode_held_to = "full_forward"
+    fp32 = None
+    if arch.ssm_kind == "mamba2":
+        # random-weight Mamba2 stacks are ill-conditioned in depth: a
+        # relative perturbation of the input grows ~1.3x a layer (8,000x
+        # over zamba2's 38), so any two bf16 computations of the same
+        # logits (the reference's own decode and full forward included)
+        # differ by O(1). The decode check runs the same serve on an fp32
+        # copy of the weights (attention on the kernel's CUDA-core body)
+        decode_held_to = "full_forward_fp32"
+        server32 = Server(cfg, params=_cast(server.params, torch.float32),
+                          device=DEVICE)
+        server32.arch = arch
+        outs32 = server32.generate(prompts)
+        served, full_steps = _decode_and_full_forward(server32, prompts,
+                                                      outs32)
+        fp32 = {"decode_vs_full_forward_max_abs_err":
+                float((full_steps - served).abs().max()),
+                "logit_peak": float(full_steps.abs().max())}
+        fp32["decode_logit_atol"] = logit_atol(fp32["logit_peak"], depth)
+        del server32, outs32, served, full_steps
+        check(fp32["decode_vs_full_forward_max_abs_err"]
+              <= fp32["decode_logit_atol"],
+              f"{arch_name} (fp32 weights): decode logits differ from the "
+              f"full forward by {fp32['decode_vs_full_forward_max_abs_err']}"
+              f" > {fp32['decode_logit_atol']}")
+    elif not arch.moe or sum(overflow.values()) == 0:
+        check(decode_err <= atol,
+              f"{arch_name}: decode logits differ from the full forward by "
+              f"{decode_err} > {atol} (logits peak at {peak})")
+    # the witness: the same serve with the plain attention in place of the
+    # kernel, so that the model's own bf16 rounding (another matmul shape
+    # at decode than in the full forward) is read apart from the kernel's
+    plain_err = witness_err = unpinned_err = flips = per_request = None
+    rounding_err = witness_atol = None
     if kernel == "flash_attention":
         orig = ops.attention
         ops.attention = _plain_attention
+        torch.cuda.reset_peak_memory_stats()
         try:
-            plain_outs = server.generate(prompts)
-            served, full_steps = _decode_and_full_forward(server, prompts,
-                                                          plain_outs)
+            if arch.moe:
+                # fed the served tokens; once with its own routing, once
+                # with the served run's experts: a rounding difference from
+                # the kernel flips discrete routing choices, after which the
+                # two compute other functions, so only the pinned serve
+                # isolates the kernel's part
+                with _Routing() as own_routing:
+                    unpinned = _teacher_forced(server, prompts, outs)
+                flips = sum(int((a != b).any(-1).sum()) for a, b in zip(
+                    served_routing.experts, own_routing.experts))
+                del own_routing
+                with _Routing(replay=served_routing.experts):
+                    witness = _teacher_forced(server, prompts, outs)
+                # the model's own sensitivity to one bf16 rounding of its
+                # attention outputs: the same pinned serve with each output
+                # rounded toward zero in place of to nearest
+                ops.attention = _plain_attention_rtz
+                with _Routing(replay=served_routing.experts):
+                    rtz = _teacher_forced(server, prompts, outs)
+            else:
+                plain_outs = server.generate(prompts)
+                served, full_steps = _decode_and_full_forward(
+                    server, prompts, plain_outs)
+                plain_err = float((full_steps - served).abs().max())
+                del served, full_steps, plain_outs
         finally:
             ops.attention = orig
-        plain_err = float((full_steps - served).abs().max())
-        del served, full_steps, plain_outs
+        peaks["witness"] = torch.cuda.max_memory_allocated() / 1e9
+        if arch.moe:
+            # the served logits, every request and step, against the plain
+            # attention's on the same tokens, batches and experts
+            decode_held_to = "plain_attention_serve_pinned_routing"
+            unpinned_err = float((served_all - unpinned).abs().max())
+            witness_err = float((served_all - witness).abs().max())
+            per_request = (served_all - witness).abs().amax(dim=(0, 2)).tolist()
+            rounding_err = float((witness - rtz).abs().max())
+            wpeak = float(witness.abs().max())
+            witness_atol = max(logit_atol(wpeak, depth), rounding_err)
+            check(witness_err <= witness_atol,
+                  f"{arch_name}: decode logits differ from the plain "
+                  f"attention's serve by {witness_err} > {witness_atol} "
+                  f"(logits peak at {wpeak}; another rounding of the plain "
+                  f"attention moves them by {rounding_err})")
+            del witness, unpinned, rtz
+    del served_all, served_routing
 
     # one prefill and one decode step again, device time against wall time
     caches = make_caches(arch, len(PROMPT_LENS), MAX_SEQ, dtype=torch.float32,
@@ -1101,36 +1319,60 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
     step_pos = torch.as_tensor([[n + NEW_TOKENS - 2] for n in PROMPT_LENS],
                                dtype=torch.int32, device=DEVICE)
     steps = {
-        "prefill": _step_ms(lambda: forward(server.params, arch, toks, pos,
-                                            caches=caches, cache_index=0)),
-        "decode": _step_ms(lambda: forward(server.params, arch, last,
-                                           step_pos, caches=caches,
-                                           cache_index=tmax + NEW_TOKENS - 2)),
+        "prefill": _step_ms(lambda: server._step(caches, 0, toks, pos)),
+        "decode": _step_ms(lambda: server._step(
+            caches, tmax + NEW_TOKENS - 2, last, step_pos)),
     }
     del caches
 
     new_tokens = len(PROMPT_LENS) * t["decode_steps"]
-    emit({"phase": f"serve_{arch_name}", "arch": arch_name,
-          "layers": arch.n_layers, "reduced": reduced,
-          "d_model": arch.d_model, "head_dims": _head_dims(arch),
-          "params": n_params, "init_s": init_s,
-          "prompt_lens": list(PROMPT_LENS), "max_seq": MAX_SEQ,
-          "new_tokens_per_request": NEW_TOKENS,
-          "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
-          "decode_tokens_per_s": new_tokens / t["decode_s"],
-          # one batch: every request gets its first token at the prefill's
-          # end and its last at the batch's end
-          "time_to_first_token_s": t["prefill_s"], "batch_wall_s": wall_s,
-          "peak_memory_gb": peak_gb, "launches": launches,
-          "capture_run_tokens_equal": capture_outs == outs,
-          "prefill_layer0_max_abs_err": prefill_errs,
-          "decode_vs_full_forward_max_abs_err": decode_err,
-          "plain_attention_decode_vs_full_forward_max_abs_err": plain_err,
-          "decode_logit_atol": atol, "logit_peak": peak,
-          "decode_err_bf16_spacings": decode_err / bf16_spacing(peak),
-          "greedy_tokens_equal_full_forward": greedy_agree,
-          "forward_step_ms": steps,
-          "sample": outs[j][:8]})
+    line = {"phase": f"serve_{arch_name}", "arch": arch_name,
+            "layers": arch.n_layers, "reduced": reduced,
+            "d_model": arch.d_model, "head_dims": _head_dims(arch),
+            "params": n_params, "init_s": init_s,
+            "prompt_lens": list(PROMPT_LENS), "max_seq": MAX_SEQ,
+            "new_tokens_per_request": NEW_TOKENS,
+            "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
+            "decode_tokens_per_s": new_tokens / t["decode_s"],
+            # one batch: every request gets its first token at the prefill's
+            # end and its last at the batch's end
+            "time_to_first_token_s": t["prefill_s"], "batch_wall_s": wall_s,
+            "peak_memory_gb": peaks["main"], "peak_memory_by_run_gb": peaks,
+            "card_memory_gb": torch.cuda.get_device_properties(
+                DEVICE).total_memory / 1e9,
+            "launches": launches, "want_launches": want_launches,
+            "capture_run_tokens_equal": capture_outs == outs,
+            "prefill_layer0_max_abs_err": prefill_errs,
+            "decode_held_to": decode_held_to,
+            "decode_vs_full_forward_max_abs_err": decode_err,
+            "plain_attention_decode_vs_full_forward_max_abs_err": plain_err,
+            "decode_logit_atol": atol, "logit_peak": peak,
+            "logit_atol_depth": depth,
+            "decode_err_bf16_spacings": decode_err / bf16_spacing(peak),
+            "greedy_tokens_equal_full_forward": greedy_agree,
+            "forward_step_ms": steps,
+            "sample": outs[j][:8]}
+    if fp32 is not None:
+        line["fp32_weights"] = fp32
+    if arch.moe:
+        line.update({
+            "decode_vs_plain_attention_serve_max_abs_err": witness_err,
+            "decode_vs_plain_attention_serve_per_request": per_request,
+            "plain_attention_rounded_toward_zero_max_abs_err": rounding_err,
+            "decode_vs_plain_attention_serve_atol": witness_atol,
+            "decode_vs_plain_attention_own_routing_max_abs_err":
+                unpinned_err,
+            "routing_flips_vs_own_routing": flips,
+            "moe_overflowing_assignments": overflow,
+            "experts": arch.n_experts, "top_k": arch.top_k})
+    if arch.enc_dec:
+        # T_enc = MAX_SEQ: the prefill writes every cross-cache slot, so a
+        # decode step with the cache and a full forward without one attend
+        # over the same encoder outputs (with T_enc < MAX_SEQ the cached
+        # cross attention would also see the unwritten zero slots)
+        line.update({"encoder_frames": MAX_SEQ, "enc_layers": arch.n_enc_layers,
+                     "dec_layers": arch.n_dec_layers})
+    emit(line)
     del server
     torch.cuda.empty_cache()
     return launches[kernel], shapes
@@ -1139,7 +1381,8 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
 def _decode_and_full_forward(server, prompts, outs):
     """The served decode logits of the unpadded (longest) request, and the
     logits at the same positions of one full forward (no cache) of its
-    prompt and generated tokens, both fp32 (steps, vocab)."""
+    prompt and generated tokens (with its frames for an encoder-decoder
+    model), both fp32 (steps, vocab)."""
     import numpy as np
     import torch
     from repro_torch.models import forward
@@ -1148,9 +1391,41 @@ def _decode_and_full_forward(server, prompts, outs):
     toks = torch.as_tensor(seq[None], device=DEVICE)
     pos = torch.arange(seq.shape[0], dtype=torch.int32, device=DEVICE)[None]
     served = torch.stack([st[j] for st in server.step_logits]).float()
+    frames = getattr(server, "frames", None)
     with torch.no_grad():
-        full, _, _ = forward(server.params, server.arch, toks, pos)
+        full, _, _ = forward(server.params, server.arch, toks, pos,
+                             enc_inputs=None if frames is None
+                             else frames[j:j + 1])
     return served, full[0, PROMPT_LENS[j] - 1:].float()
+
+
+def _teacher_forced(server, prompts, outs):
+    """The forward calls ``Server.generate`` makes, fed the served tokens
+    ``outs`` (not its own argmax): each call holds the same batch as the
+    served one. Returns the step logits (steps, B, vocab), fp32."""
+    import torch
+    from repro_torch.models import make_caches
+    B, plens = len(prompts), [len(p) for p in prompts]
+    tmax = max(plens)
+    caches = make_caches(server.arch, B, MAX_SEQ, dtype=torch.float32,
+                         device=DEVICE)
+    toks = torch.zeros((B, tmax), dtype=torch.int32, device=DEVICE)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p, device=DEVICE)
+    pos = torch.arange(tmax, dtype=torch.int32, device=DEVICE)[None].expand(
+        B, tmax)
+    logits, caches = server._step(caches, 0, toks, pos)
+    steps = [logits[torch.arange(B, device=DEVICE),
+                    torch.as_tensor(plens, device=DEVICE) - 1].float()]
+    del logits
+    for t in range(NEW_TOKENS - 1):
+        cur = torch.as_tensor([[o[t]] for o in outs], dtype=torch.int32,
+                              device=DEVICE)
+        step_pos = torch.as_tensor([[n + t] for n in plens], dtype=torch.int32,
+                                   device=DEVICE)
+        logits, caches = server._step(caches, tmax + t, cur, step_pos)
+        steps.append(logits[:, -1].float())
+    return torch.stack(steps)
 
 
 def _plain_attention(q, k, v, **kw):
@@ -1162,6 +1437,19 @@ def _plain_attention(q, k, v, **kw):
     return torch.cat([ref.flash_attention_ref(q[i:i + 1], k[i:i + 1],
                                               v[i:i + 1], **kw)
                       for i in range(q.shape[0])])
+
+
+def _plain_attention_rtz(q, k, v, **kw):
+    """``_plain_attention`` with its fp32 output rounded toward zero to q's
+    type (bf16) in place of to nearest: another valid rounding of the same
+    values, each element within one bf16 step of the plain version's, as
+    the kernel is held to be."""
+    import torch
+    out = _plain_attention(q.float(), k, v, **kw)
+    if q.dtype != torch.bfloat16:
+        return out.to(q.dtype)
+    return torch.bitwise_and(out.view(torch.int32), -65536).view(
+        torch.float32).to(q.dtype)
 
 
 def _head_dims(arch):
@@ -1253,6 +1541,15 @@ def _step_ms(fn, reps: int = 3):
             "idle_share": max(0.0, 1.0 - busy / w) if busy else None,
             "device_events": sum(1 for e in prof.events()
                                  if e.device_type == DeviceType.CUDA)}
+
+
+def _cast(tree, dtype):
+    """A parameter tree with every leaf cast to ``dtype`` (a copy)."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
 
 
 def _leaves(tree):
@@ -1507,22 +1804,28 @@ def _visible_keys(Tq: int, Tk: int, causal: bool, window, chunk):
 
 def lm_kernel_entries(timer, attn, scan_launches, scan_shapes):
     """flash_attention and rwkv6_scan at their serve-prefill and decode
-    shapes (inputs captured on the serve path), each held to its plain
-    version on the same inputs. ``attn``: (arch, launches, shapes) of each
-    serve phase through flash_attention."""
+    shapes (inputs captured on the serve path: the prefill's first call and
+    the last decode step's last), each held to its plain version on the
+    same inputs. ``attn``: (arch, launches, shapes, timed) of each serve
+    phase through flash_attention, ``timed`` naming the attention each
+    captured call is ({"prefill": "self", "decode": "self"}; seamless's are
+    its encoder and its cross attention; {} for a phase not timed here)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     entries = []
 
-    for arch_name, attn_launches, attn_shapes, call in [
-            (a, n, sh, c) for a, n, sh in attn for c in ("prefill", "decode")]:
+    for arch_name, attn_launches, attn_shapes, call, what in [
+            (a, n, sh, c, w) for a, n, sh, timed in attn
+            for c, w in timed.items()]:
         snap = _moved(attn_shapes[call], DEVICE)
         q, k, v = snap["args"]
         kw = snap["kwargs"]
         B, H, Tq, hd = q.shape
         KV, Tk, hdv = k.shape[1], k.shape[2], v.shape[3]
-        lo, hi = _visible_keys(Tq, Tk, kw["causal"], kw["window"], kw["chunk"])
+        causal, window, chunk = (kw.get("causal", True), kw.get("window"),
+                                 kw.get("chunk"))
+        lo, hi = _visible_keys(Tq, Tk, causal, window, chunk)
         pairs = B * H * int((hi - lo + 1).clip(min=0).sum())
         n_keys = int(hi.max() - lo.min() + 1)
         # q.k over hd and p.v over hdv, two operations a multiply-add; q
@@ -1539,6 +1842,8 @@ def lm_kernel_entries(timer, attn, scan_launches, scan_shapes):
         kpos = torch.arange(Tk, device=DEVICE)[None, :]
         mask = (kpos >= torch.as_tensor(lo, device=DEVICE)[:, None]) \
             & (kpos <= torch.as_tensor(hi, device=DEVICE)[:, None])
+        if bool(mask.all()):   # nothing masked: SDPA's unmasked call
+            mask = None
         qf = q.float()
         kf, vf = k.float(), v.float()
         if H != KV:   # the GQA broadcast, outside the timed call
@@ -1567,9 +1872,10 @@ def lm_kernel_entries(timer, attn, scan_launches, scan_shapes):
                 qf, kf, vf, attn_mask=mask, scale=kw.get("scale")), reps=10),
             "library_bf16_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                 qb, kb, vb, attn_mask=mask, scale=kw.get("scale")), reps=10),
-            "shape": {"arch": arch_name, "call": call, "B": B, "H": H,
-                      "KV": KV, "Tq": Tq, "Tk": Tk, "hd": hd, "hdv": hdv,
-                      "window": kw["window"],
+            "shape": {"arch": arch_name, "call": call, "attention": what,
+                      "B": B, "H": H, "KV": KV, "Tq": Tq, "Tk": Tk, "hd": hd,
+                      "hdv": hdv, "causal": causal, "window": window,
+                      "chunk": chunk,
                       "types": [str(q.dtype), str(k.dtype)],
                       "cache_bf16_exact": bool(torch.equal(
                           k, k.bfloat16().to(k.dtype))),
@@ -1670,18 +1976,32 @@ def main() -> int:
         e["launches_cluster"] = cluster_launches[e["name"]]
     del order_db, wilos_db, nav_exe, fold_lowered, fold_outs, main_out
 
-    # the LM serving paths, each with its counts from 0 (inside phase_serve)
+    # the LM serving paths, each with its counts from 0 (inside phase_serve);
+    # the kernels line times attention at the shapes of those named
+    self_attn = {"prefill": "self", "decode": "self"}
     attn = [("h2o-danube-1.8b", *phase_serve(
-        "h2o-danube-1.8b", "flash_attention", "attention"))]
+        "h2o-danube-1.8b", "flash_attention", "attention"), self_attn)]
     scan_launches, scan_shapes = phase_serve("rwkv6-3b", "rwkv6_scan",
                                              "rwkv_scan")
     attn.append(("qwen2-vl-72b", *phase_serve(
         "qwen2-vl-72b", "flash_attention", "attention",
-        layers=QWEN2_VL_LAYERS)))
+        layers=QWEN2_VL_LAYERS), self_attn))
     attn.append(("minicpm3-4b", *phase_serve(
-        "minicpm3-4b", "flash_attention", "attention")))
+        "minicpm3-4b", "flash_attention", "attention"), self_attn))
+    attn.append(("zamba2-1.2b", *phase_serve(
+        "zamba2-1.2b", "flash_attention", "attention"), {}))
+    attn.append(("seamless-m4t-large-v2", *phase_serve(
+        "seamless-m4t-large-v2", "flash_attention", "attention"),
+        {"prefill": "encoder", "decode": "cross"}))
+    attn.append(("llama4-scout-17b-a16e", *phase_serve(
+        "llama4-scout-17b-a16e", "flash_attention", "attention",
+        layers=LLAMA4_LAYERS), self_attn))
+    attn.append(("kimi-k2-1t-a32b", *phase_serve(
+        "kimi-k2-1t-a32b", "flash_attention", "attention",
+        layers=KIMI_LAYERS), {}))
     missing = [k for k, n in [("rwkv6_scan", scan_launches)]
-               + [(f"flash_attention ({a})", n) for a, n, _ in attn] if n == 0]
+               + [(f"flash_attention ({a})", n) for a, n, _, _ in attn]
+               if n == 0]
     check(not missing,
           f"kernels never launched on the serving paths: {missing}")
     phase_planner()

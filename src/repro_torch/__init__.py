@@ -23,7 +23,8 @@ instance exported from the reference package) into a server.
 This package mirrors ``repro`` module for module and imports none of it.
 Ported so far: the compile -> batch -> compiled-tier path, the serving loop
 (feedback re-optimization, plan diagnostics), the sharded cluster, LM
-serving (dense GQA/SWA with RoPE or M-RoPE, MLA, RWKV6) and the step
+serving of all ten registered architectures (dense GQA/SWA with RoPE or
+M-RoPE, MLA, RWKV6, Mamba2 / Zamba2, MoE, encoder-decoder) and the step
 planner behind ``session.plan_step`` (costed for one H100 by default).
 
   repro_torch.api         — CobraSession, OptimizerConfig, ProgramBuilder, PlanCache

@@ -9,7 +9,7 @@ same rows::
     db = database_from_numpy(tables, device="cuda")
 
 ``params_from_numpy`` turns a model's parameter tree, as numpy arrays with
-the layers stacked on a leading (L, ...) axis (the reference package's
+each stack of layers on a leading (L, ...) axis (the reference package's
 pytree layout), into the port's parameters, so the same weights give the
 same logits::
 
@@ -66,24 +66,46 @@ def _unstack(tree, i: int):
     return tree[i]
 
 
+def _leading(tree) -> int:
+    """The leading (layer) length of a stacked tree's leaves."""
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return int(np.shape(tree)[0])
+
+
 def _convert(tree, device):
     if isinstance(tree, Mapping):
         return {k: _convert(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
 
 
+# the reference's stacked sub-trees, and the length each has for an arch
+_STACKS = {
+    "layers": lambda a: a.n_layers - (a.n_dense_layers if a.moe else 0),
+    "dense_layers": lambda a: a.n_dense_layers,
+    "enc": lambda a: a.n_enc_layers,
+    "dec": lambda a: a.n_dec_layers,
+}
+
+
 def params_from_numpy(tree: Mapping[str, Any], arch, device=None) -> dict:
-    """The reference's parameter tree (numpy leaves; ``"layers"`` stacked
-    on a leading axis of ``arch.n_layers``) -> the port's parameters,
-    ``{..., "layers": [per-layer dict] * n_layers}``, on ``device`` (the
-    card by default; ``device=None`` without CUDA raises). Every leaf keeps
-    its dtype."""
+    """The reference's parameter tree (numpy leaves; its stacks
+    ``"layers"``, ``"dense_layers"``, ``"enc"`` and ``"dec"`` on a leading
+    layer axis) -> the port's parameters, each stack a list of per-layer
+    dictionaries (``shared_attn``, Zamba2's one shared block, stays one),
+    on ``device`` (the card by default; ``device=None`` without CUDA
+    raises). Every leaf keeps its dtype. A stack whose length is not the
+    one ``arch`` gives it (an MoE model's ``layers`` holds ``n_layers -
+    n_dense_layers``) raises ``ValueError``."""
     dev = resolve_device(device)
     out = {}
     for key, sub in tree.items():
-        if key == "layers":
-            out[key] = [_convert(_unstack(sub, i), dev)
-                        for i in range(arch.n_layers)]
+        if key in _STACKS:
+            n, want = _leading(sub), _STACKS[key](arch)
+            if n != want:
+                raise ValueError(f"params_from_numpy: {key!r} stacks {n} "
+                                 f"layers; {arch.name} has {want}")
+            out[key] = [_convert(_unstack(sub, i), dev) for i in range(n)]
         else:
             out[key] = _convert(sub, dev)
     return out

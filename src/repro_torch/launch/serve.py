@@ -5,15 +5,20 @@
 
 The port of ``repro.launch.serve``. One prefill over the right-padded batch
 of prompts, then batched greedy decode steps over the shared KV cache (or
-recurrent state), kept in fp32 as in the reference. Attention runs the
-``flash_attention`` CUDA kernel and the RWKV6 time-mix the ``rwkv6_scan``
-kernel on the card; on the CPU both take their plain versions.
+recurrent state), kept in fp32 as in the reference, for any registered
+architecture. Attention runs the ``flash_attention`` CUDA kernel and the
+RWKV6 time-mix the ``rwkv6_scan`` kernel on the card; on the CPU both take
+their plain versions. Mamba2's scan and the MoE dispatch are plain torch
+on both devices, as in the reference.
 
 As in the reference, prompts are right-padded to the longest one and
 decode step t writes cache slot ``Tmax + t`` at RoPE position
 ``len(prompt) + t``: a shorter prompt's decode sees its pad entries (for
-RWKV6 the pads run through the recurrent state). The port keeps this for
-parity with the reference.
+RWKV6 and Mamba2 the pads run through the recurrent state). The port keeps
+this for parity with the reference, as it keeps the reference's serving of
+an encoder-decoder model (seamless): ``generate`` passes no encoder inputs,
+so the encoder never runs and the decoder attends over a zero cross cache
+(drive ``models.forward`` with ``enc_inputs`` at the prefill to run it).
 
 The server runs on the card unless the caller names another device
 (``device="cpu"``); asking for the card without CUDA raises.

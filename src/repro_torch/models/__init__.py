@@ -1,6 +1,6 @@
-"""Model definitions: architecture registry, layers, assembly (dense GQA/SWA
-with RoPE or M-RoPE, MLA and RWKV6 so far; the other families raise until
-ROADMAP A2)."""
+"""Model definitions: architecture registry, layers, assembly, for all ten
+registered architectures (dense GQA/SWA with RoPE or M-RoPE, MLA, RWKV6,
+Mamba2 / Zamba2, MoE, encoder-decoder)."""
 
 from .arch import ArchConfig, get_arch, list_archs, register_arch
 from .model import forward, init_params, make_caches

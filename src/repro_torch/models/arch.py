@@ -4,8 +4,7 @@ One dataclass describes dense GQA/MLA/SWA transformers, RWKV6, Mamba2
 hybrids, MoE (top-1 and top-k), enc-dec, and modality-frontend stubs.
 ``scaled()`` produces the reduced smoke-test configs; full configs live in
 ``repro_torch.configs``. Pure Python, copied from the reference package;
-the port serves the ``dense`` family (GQA/SWA with RoPE or M-RoPE, and
-MLA) and ``rwkv6``.
+the port serves every family it describes.
 """
 
 from __future__ import annotations

@@ -1,28 +1,30 @@
 """Model layers in PyTorch (params = dictionaries of tensors).
 
-The port of ``repro.models.layers`` for the families the port serves:
+The port of ``repro.models.layers``, for every family of the reference:
 
   * GQA attention with RoPE or M-RoPE (Qwen2-VL), optional sliding window
     (SWA) and chunked local attention, and MLA (multi-head latent
     attention, MiniCPM3: the cache holds the latent, K/V are expanded from
     it), all through :func:`repro_torch.kernels.ops.attention` (the
     hand-written CUDA kernel on the card, its plain version on the CPU);
-  * SwiGLU MLP;
+  * SwiGLU MLP, and MoE with top-k routing and the reference's
+    capacity-based dispatch into an (E, C, d) buffer (the expert products
+    are two batched matmuls, as in the reference, outside any kernel);
   * the RWKV6 time/channel mix, whose WKV recurrence goes through
-    :func:`repro_torch.kernels.ops.rwkv_scan`, and the chunked
-    :func:`decay_linear_attention` in its RWKV mode (the reference layer's
-    own scan, kept as a plain function);
+    :func:`repro_torch.kernels.ops.rwkv_scan`, and Mamba2 (SSD, one decay
+    per head), whose scan is the chunked :func:`decay_linear_attention`
+    (the reference layer's own scan, a plain function on both devices:
+    the reference has no kernel for it);
   * embeddings and the shared norm/linear primitives.
 
 Parameters keep the reference's dtypes: matrices bf16 by default, the
-norms, ``w0`` and ``u`` fp32. Random initialisation takes an explicit
-``torch.Generator`` (the reference's ``jax.random`` keys give other
-numbers; ``repro_torch.carry.params_from_numpy`` carries the reference's
-parameters across instead).
+norms, ``w0``, ``u``, the router and Mamba2's ``dt_bias`` / ``A_log`` /
+``D`` fp32. Random initialisation takes an explicit ``torch.Generator``
+(the reference's ``jax.random`` keys give other numbers;
+``repro_torch.carry.params_from_numpy`` carries the reference's parameters
+across instead).
 
-MoE and Mamba2 are not ported yet (ROADMAP A2): Mamba2's decay mode
-raises ``NotImplementedError`` here, the other families in ``model.py``.
-Sharding policies (ROADMAP A3) are not either: :data:`NULL_POLICY` is the
+Sharding policies (ROADMAP A3) are not ported: :data:`NULL_POLICY` is the
 no-op the reference uses on one device.
 """
 
@@ -38,8 +40,6 @@ from ..kernels import ops
 from .arch import ArchConfig
 
 Params = Dict[str, Any]
-
-_LATER = "not ported yet (ROADMAP A2)"
 
 
 # --------------------------------------------------------------------------
@@ -74,10 +74,18 @@ def init_rms(d: int, device=None) -> torch.Tensor:
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
                dtype=torch.bfloat16, device=None) -> torch.Tensor:
     """Normal(0, 1/sqrt(fan_in)) (or ``scale``), drawn in fp32 from ``gen``
-    on ``device`` (the generator's own device when None), cast to dtype."""
+    on ``device`` (the generator's own device when None), cast to dtype.
+    A stack of matrices (MoE's experts) is drawn one matrix at a time, so
+    the fp32 draw never holds more than one (kimi-k2's 384 experts are
+    22.5 GB of bf16 a projection)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     device = gen.device if device is None else device
+    if len(shape) > 2:
+        out = torch.empty(tuple(shape), dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = dense_init(gen, shape[1:], s, dtype, device)
+        return out
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
     return (x * s).to(dtype)
@@ -289,7 +297,7 @@ def attention_mla(params: Params, x: torch.Tensor, cfg: ArchConfig,
 
 
 # --------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # --------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d: int, ff: int) -> Params:
@@ -304,28 +312,127 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu", pol=NULL_POLICY):
     return h @ params["w_out"]
 
 
+def init_moe(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d = cfg.d_model
+    mff = cfg.moe_d_ff or cfg.d_ff
+    E = cfg.n_experts
+    p = {"router": dense_init(gen, (d, E), dtype=torch.float32),
+         "w_in": dense_init(gen, (E, d, 2 * mff)),
+         "w_out": dense_init(gen, (E, mff, d))}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, d, mff * cfg.n_shared_experts)
+    return p
+
+
+def moe_dispatch(params: Params, xf: torch.Tensor, cfg: ArchConfig,
+                 gate_idx: Optional[torch.Tensor] = None):
+    """The reference's top-k routing and capacity dispatch of the tokens
+    ``xf`` (n, d). Returns ``(probs, gate_vals, flat_expert, keep, dst,
+    cap)``: the fp32 router softmax (n, E); each token's k gates,
+    renormalised (n, k); each (token, slot)'s expert (n·k,); whether it
+    fits its expert's capacity ``cap = max(8, ceil(n·k / E · cf))``; and
+    its row of the (E·cap + 1, d) buffer, the last row taking every
+    overflowing assignment. ``gate_idx`` (n, k), when given, routes the
+    tokens to those experts in place of the router's top k (the router's
+    probabilities there still give the gates): a replay of another call's
+    routing.
+
+    The position of an assignment within its expert is its rank in a
+    stable sort by expert, so an expert keeps its first ``cap``
+    assignments in token order, as the reference's (stable) ``jnp.argsort``
+    does. ``jax.lax.top_k`` breaks ties towards the lower expert index,
+    which ``torch.topk`` does not promise: the top k come from a stable
+    descending sort."""
+    n = xf.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xf.float() @ params["router"].float(), dim=-1)
+    if gate_idx is None:
+        gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                         stable=True)
+        gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
+    else:
+        gate_vals = probs.gather(1, gate_idx)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    cap = int(max(8, math.ceil(n * k / E * cfg.capacity_factor)))
+    flat_expert = gate_idx.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_e = flat_expert[order]
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(E, dtype=sorted_e.dtype, device=xf.device))
+    pos_sorted = torch.arange(n * k, device=xf.device) - seg_start[sorted_e]
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    keep = pos < cap
+    dst = torch.where(keep, flat_expert * cap + pos,
+                      torch.full_like(pos, E * cap))
+    return probs, gate_vals, flat_expert, keep, dst, cap
+
+
+def moe(params: Params, x: torch.Tensor, cfg: ArchConfig, pol=NULL_POLICY):
+    """Top-k routing with capacity-based dispatch (:func:`moe_dispatch`):
+    the kept assignments are scattered into an (E, cap, d) buffer, the
+    experts run as two batched products, and each token gathers its
+    outputs weighted by its renormalised gates; overflowing assignments
+    are dropped (Switch-style). Adds the shared expert. Returns (y, the
+    Switch load-balance aux loss ``E * sum_e f_e p_e``)."""
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    n = B * T
+    xf = x.reshape(n, d)
+    probs, gate_vals, flat_expert, keep, dst, cap = moe_dispatch(params, xf,
+                                                                 cfg)
+    # every buffer row but the trash row (the last) is written at most once
+    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[dst] = xf.repeat_interleave(k, dim=0)
+    buf = buf[:-1].view(E, cap, d)
+
+    gu = torch.bmm(buf, params["w_in"])
+    g, u = torch.chunk(gu, 2, dim=-1)
+    h = act_fn(cfg.act)(g.float()).to(x.dtype) * u
+    out = torch.bmm(h, params["w_out"])
+
+    out_flat = torch.cat([out.reshape(E * cap, d),
+                          torch.zeros((1, d), dtype=out.dtype, device=x.device)])
+    w = (gate_vals.reshape(-1) * keep).to(x.dtype)
+    y = (out_flat[dst] * w[:, None]).view(n, k, d).sum(dim=1)
+    if cfg.n_shared_experts:
+        y = y + mlp(params["shared"], xf, cfg.act)
+
+    me = probs.mean(dim=0)
+    ce = torch.bincount(flat_expert, minlength=E).float() / (n * k)
+    aux = E * torch.sum(me * ce)
+    return y.view(B, T, d), aux
+
+
 # --------------------------------------------------------------------------
-# Chunked decay linear attention (RWKV mode)
+# Chunked decay linear attention (shared by RWKV6 and Mamba2)
 # --------------------------------------------------------------------------
 
 def decay_linear_attention(r, kk, v, w_log, u=None, state=None,
                            chunk: Optional[int] = None,
                            scalar_decay: bool = False, pol=NULL_POLICY):
-    """The reference layer's chunked scan, RWKV mode (``u`` given)::
+    """The reference layer's chunked scan for
+    ``S_t = diag(exp(w_log_t)) S_{t-1} + k_t (x) v_t``, with output::
 
-        S_t = diag(exp(w_log_t)) S_{t-1} + k_t (x) v_t
-        y_t = r_t . S_{t-1} + (u * k_t . r_t) v_t
+        u given  (RWKV6):  y_t = r_t . S_{t-1} + (u * k_t . r_t) v_t
+        u None   (Mamba2): y_t = r_t . S_t     (current token decayed in)
 
-    Shapes: r/k/w_log (B,H,T,K), v (B,H,T,V), state (B,H,K,V). Every
-    exponent is <= 0. The port's layers run :func:`ops.rwkv_scan` (the
-    sequential recurrence, a CUDA kernel on the card) instead; this plain
-    chunked form is what they are held to. Mamba2's mode (``u`` None,
-    ``scalar_decay``) is not ported yet."""
-    if u is None or scalar_decay:
-        raise NotImplementedError(f"Mamba2's decay mode is {_LATER}")
+    Shapes: r/k/w_log (B,H,T,K), v (B,H,T,V), state (B,H,K,V). Returns (y
+    in r's type, the final fp32 state). Every exponent is <= 0: the
+    inter-chunk terms factor through the running log-decay A, the
+    intra-chunk decay comes from pairwise differences, a (C, C) outer
+    difference of ``A[..., 0]`` when the decay is one per head
+    (``scalar_decay``, Mamba2: chunk 128) or a (C, C, K) difference tensor
+    per channel (RWKV6: chunk 32). T is zero-padded to a multiple of C
+    (padded tokens leave the state as it was).
+
+    The port's RWKV6 layer runs :func:`ops.rwkv_scan` (a CUDA kernel on
+    the card) instead, and is held to this form; Mamba2's layer runs this
+    function on both devices, as the reference's does (it has no kernel
+    for it)."""
     B, H, T, K = r.shape
     V = v.shape[-1]
-    C = min(chunk if chunk is not None else 32, T)
+    C = min(chunk if chunk is not None else (128 if scalar_decay else 32), T)
     T_p = -(-T // C) * C
     if T_p != T:
         pad = (0, 0, 0, T_p - T)
@@ -337,23 +444,32 @@ def decay_linear_attention(r, kk, v, w_log, u=None, state=None,
     wc = w_log.reshape(B, H, nC, C, K).float()
     S = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device) \
         if state is None else state.float()
+    rwkv_mode = u is not None
     tt = torch.arange(C, device=r.device)
-    mask = tt[:, None] > tt[None, :]
-    uu = (u[None, :, None, :] if u.ndim == 2 else u).float()
+    mask = tt[:, None] > tt[None, :] if rwkv_mode else tt[:, None] >= tt[None, :]
+    if rwkv_mode:
+        uu = (u[None, :, None, :] if u.ndim == 2 else u).float()
     ys = []
     for c in range(nC):
         rf, kf, vf = rc[:, :, c].float(), kc[:, :, c].float(), vc[:, :, c].float()
         wC = wc[:, :, c]
         A = torch.cumsum(wC, dim=2)              # A_t = sum_{r<=t} w_r (<= 0)
         A_end = A[:, :, -1:, :]
-        A_q = A - wC                             # A_{t-1}
+        A_q = A - wC if rwkv_mode else A         # A_{t-1}, or A_t
         y = torch.einsum("bhtk,bhkv->bhtv", rf * torch.exp(A_q), S)
-        diff = A_q[:, :, :, None, :] - A[:, :, None, :, :]    # (B,H,C,C,K)
-        D = torch.exp(torch.where(mask[None, None, :, :, None], diff,
-                                  torch.full_like(diff, float("-inf"))))
-        y = y + torch.einsum("bhtk,bhtsk,bhsk,bhsv->bhtv", rf, D, kf, vf)
-        bonus = torch.einsum("bhtk,bhtk->bht", rf, uu * kf)
-        y = y + bonus[..., None] * vf
+        if scalar_decay:
+            d = A_q[..., 0][:, :, :, None] - A[..., 0][:, :, None, :]
+            D = torch.exp(torch.where(mask, d, torch.full_like(d, float("-inf"))))
+            qk = torch.einsum("bhtk,bhsk->bhts", rf, kf)
+            y = y + torch.einsum("bhts,bhsv->bhtv", qk * D, vf)
+        else:
+            diff = A_q[:, :, :, None, :] - A[:, :, None, :, :]    # (B,H,C,C,K)
+            D = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                      torch.full_like(diff, float("-inf"))))
+            y = y + torch.einsum("bhtk,bhtsk,bhsk,bhsv->bhtv", rf, D, kf, vf)
+        if rwkv_mode:
+            bonus = torch.einsum("bhtk,bhtk->bht", rf, uu * kf)
+            y = y + bonus[..., None] * vf
         k_carry = kf * torch.exp(A_end - A)
         S = S * torch.exp(A_end[:, :, 0, :])[..., None] \
             + torch.einsum("bhsk,bhsv->bhkv", k_carry, vf)
@@ -458,6 +574,56 @@ def rwkv6_block(params: Params, x: torch.Tensor, cfg: ArchConfig,
     out = xc + rr * cm
     new_state = {"shift_t": x[:, -1, :], "shift_c": xc[:, -1, :], "wkv": wkv}
     return out, new_state
+
+
+# --------------------------------------------------------------------------
+# Mamba2 block (SSD, scalar per-head decay)
+# --------------------------------------------------------------------------
+
+def init_mamba2(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, dn, H = cfg.d_model, cfg.ssm_state, cfg.n_heads
+    dev = gen.device
+    return {
+        "w_in": dense_init(gen, (d, 4 * d + 2 * dn + H)),  # x(2d),z(2d),B,C,dt
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32,
+                                          device=dev)),
+        "D": torch.ones((H,), dtype=torch.float32, device=dev),
+        "norm": init_rms(2 * d, device=dev),
+        "w_out": dense_init(gen, (2 * d, d)),
+    }
+
+
+def mamba2_block(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                 state: Optional[torch.Tensor] = None, pol=NULL_POLICY):
+    """SSD: ``y_t = sum_{s<=t} exp(A * sum dt) (C_t . B_s) x_s + D x_t`` per
+    head, through :func:`decay_linear_attention` in its scalar-decay mode
+    with r = C and k = B shared by the heads and v = dt * x. ``state``: the
+    fp32 SSM state (B, H, dn, P) or None. Returns (out, new fp32 state).
+
+    Types follow jnp's promotion as the reference's: dt and the decay are
+    fp32, v is x's type (dt cast to it), ``D`` is cast to x's type."""
+    B, T, d = x.shape
+    H, dn = cfg.n_heads, cfg.ssm_state
+    P = 2 * d // H
+    zxbcdt = x @ params["w_in"]
+    xs, z, Bm, Cm, dt = torch.split(zxbcdt, [2 * d, 2 * d, dn, dn, H], dim=-1)
+    dt = F.softplus(dt.float() + params["dt_bias"])            # (B,T,H)
+    a = -torch.exp(params["A_log"])                            # (H,)
+    w_log = dt * a                                             # (B,T,H) <= 0
+    xh = xs.reshape(B, T, H, P)
+    r = Cm[:, None].expand(B, H, T, dn).to(x.dtype)
+    k = Bm[:, None].expand(B, H, T, dn).to(x.dtype)
+    v = (xh * dt[..., None].to(xh.dtype)).transpose(1, 2)
+    w = w_log.transpose(1, 2)[..., None].expand(B, H, T, dn)
+    y, new_state = decay_linear_attention(r, k, v, w, state=state,
+                                          scalar_decay=True)
+    y = y.transpose(1, 2).reshape(B, T, 2 * d)
+    y = y + (xh * params["D"].to(xh.dtype)[None, None, :, None]
+             ).reshape(B, T, 2 * d)
+    y = rms_norm(y, params["norm"], cfg.norm_eps) * \
+        F.silu(z.float()).to(x.dtype)
+    return y @ params["w_out"], new_state
 
 
 # --------------------------------------------------------------------------

@@ -42,12 +42,19 @@ runs where only torch is installed::
     3e-2 bf16; and the chunk-parallel scan over several chunks with a
     ragged tail, over rows off 16 bytes, and the -40 decay across a chunk
     boundary;
+  * ``flash_attention`` with no causal mask and bf16 q (seamless-m4t's
+    encoder and cross attention), at a ragged Tq < Tk, Tq > Tk and decode
+    over 4,608 keys;
   * a scaled ``Server.generate`` on the card against the same server on
     the CPU (fp32 parameters: the same tokens, logits within 1e-3), for
-    danube, rwkv6, qwen2-vl (M-RoPE) and minicpm3 (MLA), and for
+    danube, rwkv6, qwen2-vl (M-RoPE) and minicpm3 (MLA); for
     internlm2-20b and stablelm-12b at 2 layers with their published head
-    dims 128 and 160; with bf16 parameters (the tensor-core body) those two
-    are held to the same model with the plain attention on the card;
+    dims 128 and 160; and for zamba2 (Mamba2 + the shared block),
+    seamless-m4t (decoder over its cross cache), llama4-scout and kimi-k2
+    (MoE) at 2 layers with their published head dims 64 and 128; with bf16
+    parameters (the tensor-core body) internlm2 and stablelm, and seamless
+    with its encoder, are held to the same model with the plain attention
+    on the card;
   * the serving loop on the card: the drift flip (join -> prefetch) with
     the compiled tier on, equal to the same stream on the CPU, and the
     programs as written launching the relational kernels inside it;
@@ -375,6 +382,32 @@ def test_flash_attention_at_decode(cuda, exact):
                     4096, None, seed=1, bf16_cache=exact)
 
 
+# (B, H, KV, Tq, Tk, hd, kv dtype, bf16-exact cache, K/V rows off 16
+# bytes): bf16 q with no causal mask, the tensor-core body. seamless-m4t's
+# encoder (H = KV = 16, hd 64, bf16 K/V) and cross attention over its fp32
+# cross cache, at a ragged Tq < Tk and at decode (Tq 1 over 4,608 keys: the
+# split-key path with no causal bound); Tq > Tk, GQA, hd 128, and K/V rows
+# off 16 bytes
+ATTN_NON_CAUSAL = [
+    (2, 16, 16, 600, 600, 64, "bfloat16", False, False),
+    (2, 16, 16, 500, 608, 64, "float32", True, False),
+    (2, 16, 16, 1, 4608, 64, "float32", True, False),
+    (2, 16, 16, 1, 4608, 64, "float32", False, False),
+    (1, 4, 4, 77, 300, 64, "float32", False, False),
+    (1, 4, 2, 300, 77, 64, "float32", False, False),
+    (1, 8, 2, 200, 333, 128, "float32", False, False),
+    (1, 8, 8, 130, 130, 64, "float32", True, True),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Tq,Tk,hd,kv_dt,exact,offset",
+                         ATTN_NON_CAUSAL)
+def test_flash_attention_non_causal(cuda, B, H, KV, Tq, Tk, hd, kv_dt, exact,
+                                    offset):
+    _attention_case(cuda, B, H, KV, Tq, Tk, hd, "bfloat16", kv_dt, False,
+                    None, None, seed=Tq + Tk, bf16_cache=exact, offset=offset)
+
+
 # (B, H, KV, Tq, Tk, hd, q dtype, kv dtype, bf16-exact cache, K/V rows off
 # 16 bytes, window): the wide heads. fp32 q takes the CUDA-core body (HC 4
 # and 5), bf16 q the tensor cores (KS 8 and 10; hd 112 and 144 padded up)
@@ -615,14 +648,12 @@ def _wide_head_arch(name):
     return cfg
 
 
-@pytest.mark.parametrize("arch", sorted(WIDE_HEAD_ARCHS))
-def test_wide_head_servers_on_the_card_equal_the_cpu(cuda, arch):
-    # fp32 parameters: the CUDA-core body at HC 4 / 5, tokens equal to the
-    # CPU's and logits within 1e-3, as for the smoke-scale servers
-    cfg = _wide_head_arch(arch)
+def _server_on_the_card_equals_the_cpu(cuda, cfg, launches_per_step):
+    # fp32 parameters (the CUDA-core body), tokens equal to the CPU's and
+    # logits within 1e-3, as for the smoke-scale servers
     params = _tree(lambda t: t.float(), init_params(
         torch.Generator().manual_seed(0), cfg))
-    scfg = serve.ServeConfig(arch=arch, max_new_tokens=4, max_seq=40)
+    scfg = serve.ServeConfig(arch=cfg.name, max_new_tokens=4, max_seq=40)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (9, 30, 4)]
@@ -633,10 +664,82 @@ def test_wide_head_servers_on_the_card_equal_the_cpu(cuda, arch):
     ops.reset_launch_counts()
     got = card.generate(prompts)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == cfg.n_layers * 4
+    assert ops.launch_counts()["flash_attention"] == launches_per_step * 4
     assert got == cpu.generate(prompts)
     for a, b in zip(card.step_logits, cpu.step_logits):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", sorted(WIDE_HEAD_ARCHS))
+def test_wide_head_servers_on_the_card_equal_the_cpu(cuda, arch):
+    # the CUDA-core body at HC 4 / 5
+    cfg = _wide_head_arch(arch)
+    _server_on_the_card_equals_the_cpu(cuda, cfg, cfg.n_layers)
+
+
+# zamba2-1.2b and seamless-m4t (hd 64), llama4-scout and kimi-k2 (hd 128) at
+# 2 layers with their published head dims: (d_model, head dim)
+FAMILY_ARCHS = {"zamba2-1.2b": (256, 64), "seamless-m4t-large-v2": (256, 64),
+                "llama4-scout-17b-a16e": (512, 128),
+                "kimi-k2-1t-a32b": (512, 128)}
+
+
+def _family_arch(name):
+    d_model, hd = FAMILY_ARCHS[name]
+    cfg = get_arch(name).scaled(n_layers=2, d_model=d_model, n_heads=4)
+    assert cfg.hd == hd == get_arch(name).hd
+    return cfg
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_ARCHS))
+def test_family_servers_on_the_card_equal_the_cpu(cuda, arch):
+    # attention launches a step: zamba2's shared block once at each of its
+    # 2 sites; seamless's decoder self and cross attention a layer (the
+    # server runs no encoder); the MoE models one a layer
+    cfg = _family_arch(arch)
+    per_step = {"zamba2-1.2b": 2, "seamless-m4t-large-v2": 4}.get(
+        arch, cfg.n_layers)
+    _server_on_the_card_equals_the_cpu(cuda, cfg, per_step)
+
+
+def test_encoder_decoder_in_bf16_on_the_card(cuda, monkeypatch):
+    # seamless-m4t at 2 + 2 layers, bf16 parameters and fp32 cache (the
+    # serving types; the encoder runs bf16 only, as the reference's): a
+    # prefill with the encoder over 70 frames (attention with no causal
+    # mask, bf16 K/V), then three decode steps over the cross cache, with
+    # the kernel and with the plain attention, both on the card, within
+    # 0.05, as the wide-head models in bf16
+    cfg = _family_arch("seamless-m4t-large-v2")
+    params = _tree(lambda t: t.to(cuda), init_params(
+        torch.Generator().manual_seed(0), cfg))
+    rng = np.random.default_rng(3)
+    B, P, T = 2, 60, 63
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)),
+                           dtype=torch.int32, device=cuda)
+    pos = torch.arange(T, dtype=torch.int32, device=cuda)[None].expand(B, T)
+    frames = torch.as_tensor(rng.standard_normal((B, 70, cfg.d_model)),
+                             dtype=torch.float32, device=cuda)
+
+    def run():
+        caches = make_caches(cfg, B, 70, dtype=torch.float32, device=cuda)
+        out, _, _ = forward(params, cfg, toks[:, :P], pos[:, :P],
+                            caches=caches, cache_index=0, enc_inputs=frames)
+        steps = [out]
+        for t in range(P, T):
+            lg, _, _ = forward(params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
+                               caches=caches, cache_index=t)
+            steps.append(lg)
+        return torch.cat(steps, dim=1).float()
+
+    ops.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == \
+        cfg.n_enc_layers + 2 * cfg.n_dec_layers * (T - P + 1)
+    monkeypatch.setattr(ops, "attention", ref.flash_attention_ref)
+    want = run()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0.05, atol=0.05)
 
 
 @pytest.mark.parametrize("arch", sorted(WIDE_HEAD_ARCHS))
