@@ -39,6 +39,15 @@ just after:
     width cut to 13 of 48 layers, and kimi-k2-1t-a32b (MoE, all 384
     experts, top-8) cut to its first 2 of 61 layers (cuts listed in the
     lines' ``reduced``);
+  * training through ``launch.train.train``: h2o-danube-1.8b at its full
+    published configuration (24 layers, 1.83B parameters, AdamW, seeded
+    weights, the ``SyntheticLM`` stream, 4 x 2,048 tokens a step, 10 steps),
+    whose attention's backward is the ``flash_attention_bwd`` kernel; the
+    backward kernel first held to its plain version at the training
+    attention shape of each family, and a first step's gradients to the
+    plain attention's; then the failure drill (a crash at step 7 of 12,
+    resumed from the step-5 checkpoint, bit-identical to an uninterrupted
+    run) at the published width cut to 2 layers;
   * one ``CobraSession.plan_step`` report of the step planner under the
     port's default hardware table (one H100 SXM), on the host.
 
@@ -116,6 +125,36 @@ LLAMA4_LAYERS = 13
 # with all 384 experts, top-8 and the shared expert, 39.9 GB (3 layers
 # would be 74.1 GB); no expert is cut
 KIMI_LAYERS = 2
+# training: h2o-danube-1.8b at its full published configuration, 4 x 2,048
+# tokens a step (8,192), 10 steps, one of them traced
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_BATCH = 4
+TRAIN_T = 2048
+TRAIN_STEPS = 10
+TRAIN_TRACE_STEP = 5
+TRAIN_CROSS_TK = 2560       # cross attention's keys (Tq != Tk) in the parity
+# the caching allocator's counters read around each training step: a
+# cudaMalloc (num_device_alloc) or a retry after freeing the cache
+# (num_alloc_retries) synchronizes, and shows in that step's wall
+ALLOC_COUNTERS = ("num_alloc_retries", "num_device_alloc", "num_device_free",
+                  "num_ooms")
+# the backward kernel against its plain version in fp32 over the same bf16
+# inputs: dq, dk, dv within this many bf16 roundings (2**-8) of their peak
+# (one rounding of the output; the rest, the fp32 sums' order)
+BWD_TOL = 2
+# a first step's gradients, kernel against plain attention (both bf16), per
+# leaf relative L2: within twice the plain attention's own bf16-vs-fp32
+# error, and never held tighter than this
+GRAD_REL_L2_FLOOR = 1e-2
+# the update check: the reference's schedule (warmup_cosine(3e-4, warmup,
+# steps), warmup = max(10, min(200, steps // 10))) is at its peak at step
+# 10, the warmup of a TRAIN_STEPS run; AdamW's constants (the reference's)
+UPDATE_STEP, UPDATE_LR = 10, 3e-4
+ADAMW_B1, ADAMW_B2, ADAMW_EPS, ADAMW_WD = 0.9, 0.95, 1e-8, 0.1
+# AdamW's fp32 moments after the step, per leaf relative L2 against the
+# fp64 formula (the clipped gradients' bf16 rounding may land one spacing
+# apart where the fp32 and fp64 norms differ: about 1e-4 at most)
+MOMENT_REL_L2 = 1e-3
 
 
 def logit_atol(peak: float, layers: int) -> float:
@@ -1459,6 +1498,550 @@ def _head_dims(arch):
     return [arch.hd, arch.hd]
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+# the training attention shape of each family the card can train (its
+# published heads, head dims and masks; queries and keys 2,048 long, B 1),
+# and danube's at its training batch (4): (label, B, H, KV, Tq, Tk, hd,
+# hdv, causal, window, chunk)
+def _train_attention_shapes():
+    from repro_torch.models import get_arch
+    out = []
+    for label, name in [("danube", "h2o-danube-1.8b"),
+                        ("qwen2-vl", "qwen2-vl-72b"),
+                        ("stablelm", "stablelm-12b"),
+                        ("llama4", "llama4-scout-17b-a16e"),
+                        ("zamba2", "zamba2-1.2b")]:
+        a = get_arch(name)
+        out.append((label, 1, a.n_heads, a.n_kv_heads, TRAIN_T, TRAIN_T,
+                    a.hd, a.hd, True, a.window, a.chunk_size))
+    m = get_arch("minicpm3-4b")
+    out.append(("minicpm3", 1, m.n_heads, m.n_heads, TRAIN_T, TRAIN_T,
+                m.qk_nope_dim + m.qk_rope_dim, m.vhd, True, None, None))
+    s = get_arch("seamless-m4t-large-v2")
+    out.append(("seamless encoder", 1, s.n_heads, s.n_kv_heads, TRAIN_T,
+                TRAIN_T, s.hd, s.hd, False, None, None))
+    out.append(("seamless cross", 1, s.n_heads, s.n_kv_heads, TRAIN_T,
+                TRAIN_CROSS_TK, s.hd, s.hd, False, None, None))
+    # llama4's chunk (8,192) is inactive at 2,048: the same heads under a
+    # chunk that crosses the sequence
+    l4 = get_arch("llama4-scout-17b-a16e")
+    out.append(("llama4 chunk 768", 1, l4.n_heads, l4.n_kv_heads, TRAIN_T,
+                TRAIN_T, l4.hd, l4.hd, True, None, 768))
+    # short, ragged tails of each (T 77; the cross one 77 over 130 keys)
+    out += [(f"{c[0]} tail", 1, c[2], c[3], 77, 77 if c[4] == c[5] else 130,
+             *c[6:]) for c in list(out)]
+    d = get_arch("h2o-danube-1.8b")
+    out.append(("danube train batch", TRAIN_BATCH, d.n_heads, d.n_kv_heads,
+                TRAIN_T, TRAIN_T, d.hd, d.hd, True, d.window, None))
+    return out
+
+
+def _bwd_inputs(B, H, KV, Tq, Tk, hd, hdv, seed):
+    """Seeded bf16 q, k, v and an output gradient on the card."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n = lambda *s: torch.randn(s, generator=g, device=DEVICE).bfloat16()  # noqa: E731
+    return n(B, H, Tq, hd), n(B, KV, Tk, hd), n(B, KV, Tk, hdv), \
+        n(B, H, Tq, hdv)
+
+
+def _rel_peak(got, want) -> float:
+    """max |got - want| over the peak of |want|."""
+    d = float((got.float() - want.float()).abs().max())
+    return d / max(float(want.float().abs().max()), 1e-30)
+
+
+def phase_lm_train_kernel_parity() -> None:
+    """flash_attention_bwd against flash_attention_bwd_ref on the card, in
+    fp32 over the same bf16 inputs (q, k, v, the output gradient, and the
+    forward kernel's output and log-sum-exps), at the training attention
+    shape of each family: dq, dk and dv each within BWD_TOL bf16 roundings
+    of its peak. A witness reads the rounding scale: autograd through the
+    plain version with bf16 inputs, against the same fp32 gradients. A
+    second call must give the same bits."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels import ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cases = []
+    for i, (label, B, H, KV, Tq, Tk, hd, hdv, causal, window, chunk) in \
+            enumerate(_train_attention_shapes()):
+        q, k, v, do = _bwd_inputs(B, H, KV, Tq, Tk, hd, hdv, seed=100 + i)
+        scale = 1.0 / math.sqrt(hd)
+        kw = dict(causal=causal, window=window, chunk=chunk, scale=scale)
+        o, lse = fa._forward(q, k, v, causal, window, chunk, scale,
+                             with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           o.float(), lse, do.float(), **kw)
+        # the witness: autograd through the plain version, bf16 in and out
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        ref.flash_attention_ref(*leaves, **kw).backward(do)
+        sync()
+        errs = [_rel_peak(g, w) for g, w in zip(got, want)]
+        witness = [_rel_peak(x.grad, w) for x, w in zip(leaves, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        shape = [B, H, KV, Tq, Tk, hd, hdv]
+        cases.append({"case": label, "shape": shape, "causal": causal,
+                      "window": window, "chunk": chunk,
+                      "rel_err_dq_dk_dv": errs,
+                      "witness_rel_err_dq_dk_dv": witness,
+                      "bit_identical_second_call": same})
+        check(finite, f"flash_attention_bwd {label}: non-finite gradient")
+        check(all(e <= BWD_TOL * 2.0 ** -8 for e in errs),
+              f"flash_attention_bwd {label} {shape}: relative errors {errs} "
+              f"past {BWD_TOL} bf16 roundings ({BWD_TOL * 2.0 ** -8:.3g}); "
+              f"the plain version in bf16 reads {witness}")
+        check(same, f"flash_attention_bwd {label}: a second call differs")
+        del q, k, v, do, o, lse, got, again, want, leaves
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_train_kernel_parity", "cases": len(cases),
+          "tolerance": f"max |kernel - plain fp32| <= {BWD_TOL} x 2**-8 x "
+                       f"peak, for each of dq, dk, dv",
+          "results": cases})
+
+
+def _leaf_rel_l2(a, b) -> dict:
+    """Per reference leaf path, ||a - b|| / ||b|| of two gradient trees."""
+    from repro_torch.carry import reference_leaves
+    la, lb = reference_leaves(a), reference_leaves(b)
+    out = {}
+    for path, (ts, _) in lb.items():
+        num = sum(float(((x.float() - y.float()) ** 2).sum())
+                  for x, y in zip(la[path][0], ts))
+        den = sum(float((y.float() ** 2).sum()) for y in ts)
+        out["/".join(path)] = math.sqrt(num) / max(math.sqrt(den), 1e-30)
+    return out
+
+
+def _first_step_grads(arch, params, batch):
+    """The gradient tree of one batch's loss."""
+    import torch
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import tree_leaves, tree_map
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(params, arch, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    it = iter(grads)
+    return float(loss.detach()), tree_map(lambda _: next(it), params)
+
+
+def _update_check(arch, params, batch, grads, loss):
+    """The loop's own train step (``make_train_step`` with the optimizer
+    ``train`` builds) once, at step UPDATE_STEP (the schedule's peak) from
+    fresh AdamW state, on a copy of ``params`` and ``batch``; held leaf by
+    leaf against the reference's formulas in fp64 over ``grads``, the
+    gradients of the same parameters and batch (the step is deterministic,
+    so its own are these): clip to a global norm of 1.0 (the clipped
+    gradient rounded to the leaf's type), m = (1-b1) g, v = (1-b2) g^2, and
+    p + u with u = -lr (m^ / (sqrt(v^) + eps) + wd p). AdamW's moments must
+    agree within MOMENT_REL_L2 (relative L2); each bf16 parameter within
+    one bf16 spacing of the exact sum plus 2**-7 of its update (the
+    update's own rounding to bf16 and the gradient's). An update that
+    leaves a parameter alone fails wherever the exact update is larger
+    than that limit: their count is printed and must not be 0."""
+    import torch
+    from repro_torch.launch.specs import make_optimizer, make_train_step
+    from repro_torch.optim import tree_leaves, tree_map
+    start = tree_map(lambda t: t.clone(), params)
+    opt = make_optimizer(arch, total_steps=TRAIN_STEPS)
+    state = opt.init(start)
+    new, state, _, metrics = make_train_step(arch, optimizer=opt)(
+        start, state, UPDATE_STEP, {k: v.clone() for k, v in batch.items()})
+    p0, p1 = tree_leaves(params), tree_leaves(new)
+    m1, v1, g = tree_leaves(state["m"]), tree_leaves(state["v"]), \
+        tree_leaves(grads)
+    norm = math.sqrt(sum(float((x.double() ** 2).sum()) for x in g))
+    scale = min(1.0, 1.0 / max(norm, 1e-9))
+    t = UPDATE_STEP + 1.0
+    bc1, bc2 = 1 - ADAMW_B1 ** t, 1 - ADAMW_B2 ** t
+    worst_m = worst_v = worst_p = 0.0
+    teeth = n = 0
+    for gi, a, b, m, v in zip(g, p0, p1, m1, v1):
+        gc = (gi.double() * scale).to(gi.dtype).double()
+        m_want, v_want = (1 - ADAMW_B1) * gc, (1 - ADAMW_B2) * gc * gc
+        worst_m = max(worst_m, float((m.double() - m_want).norm()
+                                     / m_want.norm().clamp(min=1e-300)))
+        worst_v = max(worst_v, float((v.double() - v_want).norm()
+                                     / v_want.norm().clamp(min=1e-300)))
+        u = -UPDATE_LR * ((m_want / bc1) / (torch.sqrt(v_want / bc2)
+                                            + ADAMW_EPS)
+                          + ADAMW_WD * a.double())
+        want = a.double() + u
+        big = torch.maximum(want.abs(), b.double().abs()).clamp(min=1e-30)
+        tol = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8) \
+            + 2.0 ** -7 * u.abs()
+        worst_p = max(worst_p, float(((b.double() - want).abs() / tol).max()))
+        teeth += int((u.abs() > tol).sum())
+        n += u.numel()
+        del gc, m_want, v_want, u, want, big, tol
+    out = {"step": UPDATE_STEP, "lr": UPDATE_LR, "grad_norm": norm,
+           "grad_norm_step": float(metrics["grad_norm"]),
+           "clip_scale": scale, "loss_step": float(metrics["loss"]),
+           "loss_grads": loss,
+           "moments_rel_l2_max": {"m": worst_m, "v": worst_v},
+           "param_err_over_limit_max": worst_p,
+           "elements": n, "elements_a_no_op_would_fail": teeth,
+           "limit": f"m, v: relative L2 <= {MOMENT_REL_L2}; each parameter "
+                    f"within one bf16 spacing + 2**-7 x |update| of the "
+                    f"fp64 formula"}
+    check(out["loss_step"] == loss,
+          f"update check: the step's loss {out['loss_step']} is not the "
+          f"gradients' {loss} (the step is not deterministic?)")
+    check(abs(out["grad_norm_step"] - norm) <= 1e-4 * norm,
+          f"update check: grad norm {out['grad_norm_step']} vs {norm}")
+    check(worst_m <= MOMENT_REL_L2 and worst_v <= MOMENT_REL_L2,
+          f"update check: AdamW moments off the formula: {out}")
+    check(worst_p <= 1.0, f"update check: parameters off the formula: {out}")
+    check(teeth > 0, f"update check: no update exceeds its limit: {out}")
+    return out
+
+
+def phase_train(arch_name: str):
+    """``launch.train.train`` at the full published configuration: seeded
+    bf16 weights, AdamW, the ``SyntheticLM`` stream, TRAIN_BATCH x TRAIN_T
+    tokens a step, TRAIN_STEPS steps, launch counts from 0 just before and
+    read just after (each step must launch the forward and the backward
+    kernel once a layer). Each step is timed (host clock to a synchronize)
+    and one traced; the loss must fall as ``test_loss_decreases_on_
+    structured_stream`` requires. Then the gradient check at the published
+    width cut to 2 layers with batch 1: a first step's gradients with the
+    kernels against the same step with the plain attention, leaf by leaf
+    (relative L2), beside the plain attention's own bf16-vs-fp32 error.
+    Returns the loop's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import get_arch, init_params
+    arch = get_arch(arch_name)
+    walls, traced = [], {}   # untraced steps' walls; the traced step's
+    allocs = []              # the caching allocator's counters, each step
+    make = train_mod.make_train_step
+
+    def alloc_counts():
+        st = torch.cuda.memory_stats()
+        return {k: st.get(k, 0) for k in ALLOC_COUNTERS}
+
+    def timed_make(*a, **kw):
+        fn = make(*a, **kw)
+
+        def step(*args):
+            sync()
+            before = alloc_counts()
+            try:
+                return timed(*args)
+            finally:
+                after = alloc_counts()
+                allocs.append({k: after[k] - before[k] for k in after})
+
+        def timed(*args):
+            if len(walls) == TRAIN_TRACE_STEP and not traced:
+                (out, wall), busy, split = _device_busy(lambda: fn(*args),
+                                                        split=True)
+                traced.update(wall_ms=wall * 1e3, device_busy_ms=busy,
+                              idle_share=None if busy is None
+                              else max(0.0, 1.0 - busy / (wall * 1e3)),
+                              device_ms_by_kind=split)
+                return out
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            return out
+        return step
+
+    cfg = train_mod.TrainConfig(arch=arch_name, scale="full",
+                                steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                                seq_len=TRAIN_T, log_every=1, device=DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_mod.make_train_step = timed_make
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train_mod.train(cfg, progress=lambda _: None)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        train_mod.make_train_step = make
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [l for _, l in out["losses"]]
+    del out
+    torch.cuda.empty_cache()
+    per_step = {k: launches[k] / TRAIN_STEPS
+                for k in ("flash_attention", "flash_attention_bwd")}
+    tokens = TRAIN_BATCH * TRAIN_T
+    steady = statistics.median(walls[1:])
+    line = {"phase": f"train_{arch_name}", "arch": arch_name,
+            "layers": arch.n_layers, "params": arch.n_params(),
+            "optimizer": "adamw", "steps": TRAIN_STEPS,
+            "global_batch": TRAIN_BATCH, "seq_len": TRAIN_T,
+            "wall_s": wall, "first_step_s": walls[0],
+            "step_s": walls[1:], "step_median_s": steady,
+            "note": "first_step_s: step 1; step_s: the other untraced "
+                    "steps (host clock to a synchronize); traced_step: "
+                    "step TRAIN_TRACE_STEP + 1 under torch.profiler; "
+                    "tokens_per_s: over the median step; "
+                    "tokens_per_s_window: every untraced step's tokens over "
+                    "their summed walls, the first step included; "
+                    "allocator_by_step: the caching allocator's counters "
+                    "gained in each step, the traced one included",
+            "tokens_per_s": tokens / steady,
+            "tokens_per_s_window": tokens * len(walls) / sum(walls),
+            "allocator_by_step": allocs,
+            "traced_step": {"index": TRAIN_TRACE_STEP, **traced},
+            "peak_memory_gb": peak_gb, "losses": losses,
+            "launches": launches, "launches_per_step": per_step}
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    check(per_step["flash_attention"] == arch.n_layers
+          and per_step["flash_attention_bwd"] == arch.n_layers,
+          f"train: {per_step} launches a step, not one forward and one "
+          f"backward a layer ({arch.n_layers})")
+    check(min(losses[2:]) < losses[0] - 0.05,
+          f"train: the loss did not fall on the structured stream: {losses}")
+
+    # the gradient check: 2 layers of the published width, batch 1, random
+    # tokens and labels (a row of the structured stream may repeat one
+    # token, and then q and k get no gradient beyond rounding noise)
+    small = dataclasses.replace(arch, n_layers=2)
+    params = init_params(torch.Generator(device=DEVICE).manual_seed(1), small)
+    rng = np.random.default_rng(1)
+    batch = {k: torch.as_tensor(rng.integers(0, small.vocab_size, (1, TRAIN_T))
+                                .astype(np.int32), device=DEVICE)
+             for k in ("tokens", "labels")}
+    ops.reset_launch_counts()
+    loss_k, g_kernel = _first_step_grads(small, params, batch)
+    grad_launches = ops.launch_counts()
+    attention = ops.attention
+    ops.attention = ref.flash_attention_ref
+    try:
+        loss_p, g_plain = _first_step_grads(small, params, batch)
+        loss_32, g_fp32 = _first_step_grads(small, _cast(params, torch.float32),
+                                            batch)
+    finally:
+        ops.attention = attention
+    err = _leaf_rel_l2(g_kernel, g_plain)
+    witness = _leaf_rel_l2(g_plain, g_fp32)
+    limit = {k: max(GRAD_REL_L2_FLOOR, 2 * witness[k]) for k in err}
+    bad = {k: (err[k], limit[k]) for k in err if not err[k] <= limit[k]}
+    line["grad_check"] = {
+        "layers": 2, "batch": 1, "seq_len": TRAIN_T,
+        "loss_kernel": loss_k, "loss_plain": loss_p, "loss_plain_fp32": loss_32,
+        "launches": {k: grad_launches[k] for k in ("flash_attention",
+                                                   "flash_attention_bwd")},
+        "kernel_vs_plain_rel_l2_max": max(err.values()),
+        "plain_bf16_vs_fp32_rel_l2_max": max(witness.values()),
+        "kernel_vs_plain_rel_l2": err,
+        "plain_bf16_vs_fp32_rel_l2": witness,
+        "limit": f"per leaf max({GRAD_REL_L2_FLOOR}, 2 x the plain "
+                 f"attention's bf16-vs-fp32 error)"}
+    del g_plain, g_fp32
+    torch.cuda.empty_cache()
+    try:
+        line["update_check"] = _update_check(small, params, batch, g_kernel,
+                                             loss_k)
+    finally:
+        emit(line)
+    check(grad_launches["flash_attention_bwd"] == 2,
+          f"grad check: {grad_launches} (one backward a layer)")
+    check(not bad, f"train: gradients off the plain attention's: {bad}")
+    del params, g_kernel, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_resume(arch_name: str, root: Path) -> None:
+    """The failure drill of ``test_failure_injection_and_bitwise_resume`` on
+    the card, at the published width cut to 2 layers (a configuration of
+    its own, registered for the drill): 12 steps with checkpoints every 5,
+    a crash at step 7, a restart from the step-5 checkpoint; the resumed
+    parameters must equal an uninterrupted run's bit for bit. Checkpoints
+    go to a directory under the checkout's ``build/``, removed afterwards.
+    The loop's checkpointer is wrapped to time each save (made blocking,
+    so the time is the whole write) and the resume's restore."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import arch as arch_mod
+    from repro_torch.models import get_arch
+    from repro_torch.optim import tree_leaves
+    times = {"save": [], "restore": []}
+
+    class Timed(train_mod.Checkpointer):
+        def save(self, step, tree, extras=None, block=False):
+            sync()
+            t0 = time.perf_counter()
+            super().save(step, tree, extras, block=True)
+            times["save"].append(time.perf_counter() - t0)
+
+        def restore(self, template, step=None):
+            t0 = time.perf_counter()
+            out = super().restore(template, step)
+            sync()
+            times["restore"].append(time.perf_counter() - t0)
+            return out
+
+    name = f"{arch_name}-2-layers"
+    arch_mod.register_arch(dataclasses.replace(get_arch(arch_name), name=name,
+                                               n_layers=2))
+    (root / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="train_resume_", dir=root / "build"))
+    checkpointer = train_mod.Checkpointer
+    train_mod.Checkpointer = Timed
+    try:
+        common = dict(arch=name, scale="full", steps=12,
+                      global_batch=TRAIN_BATCH, seq_len=TRAIN_T, ckpt_every=5,
+                      log_every=100, device=DEVICE)
+        quiet = lambda _: None   # noqa: E731
+        t0 = time.perf_counter()
+        ref = train_mod.train(train_mod.TrainConfig(
+            **common, ckpt_dir=str(tmp / "ref")), quiet)
+        t_ref = time.perf_counter() - t0
+        step5 = tmp / "ref" / "step_00000005"
+        nbytes = sum(f.stat().st_size for f in step5.iterdir()) \
+            if step5.is_dir() else None
+        crashed = False
+        try:
+            train_mod.train(train_mod.TrainConfig(
+                **common, ckpt_dir=str(tmp / "crash"), fail_at=7), quiet)
+        except RuntimeError as e:
+            crashed = "injected failure" in str(e)
+        seen = []
+        t0 = time.perf_counter()
+        resumed = train_mod.train(train_mod.TrainConfig(
+            **common, ckpt_dir=str(tmp / "crash")), seen.append)
+        t_resumed = time.perf_counter() - t0
+        la, lb = tree_leaves(ref["params"]), tree_leaves(resumed["params"])
+        same = len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+        n_diff = sum(int((x != y).sum()) for x, y in zip(la, lb))
+        emit({"phase": "train_resume", "arch": arch_name,
+              "reduced": {"n_layers": [get_arch(arch_name).n_layers, 2]},
+              "steps": 12, "ckpt_every": 5, "fail_at": 7,
+              "global_batch": TRAIN_BATCH, "seq_len": TRAIN_T,
+              "crashed": crashed, "resume_log": seen[:1],
+              "final_step": resumed["final_step"],
+              "bit_identical": same, "elements_differing": n_diff,
+              "uninterrupted_wall_s": t_ref, "resumed_wall_s": t_resumed,
+              "checkpoint_bytes": nbytes, "save_s": times["save"],
+              "restore_s": times["restore"],
+              "note": "save_s: every save of the three runs, each made "
+                      "blocking (host copy and write); restore_s: the "
+                      "resume's"})
+        check(crashed, "train_resume: the run did not crash at step 7")
+        check(seen[:1] == ["[resume] step 5"],
+              f"train_resume: resumed from {seen[:1]}, not step 5")
+        check(resumed["final_step"] == 12, "train_resume: final step")
+        check(same, f"train_resume: {n_diff} parameter elements differ from "
+                    f"the uninterrupted run")
+    finally:
+        train_mod.Checkpointer = checkpointer
+        shutil.rmtree(tmp, ignore_errors=True)
+        arch_mod._REGISTRY.pop(name, None)
+        torch.cuda.empty_cache()
+    check(not tmp.exists(), f"train_resume: {tmp} left behind")
+
+
+def train_kernel_entry(timer, launches: int) -> dict:
+    """flash_attention_bwd at danube's training shape (batch 4 x 2,048,
+    H 32 / KV 8, hd 80, window 4,096), seeded bf16 inputs and the forward
+    kernel's output and log-sum-exps: the kernel against its plain version,
+    the backward of autograd through the plain attention, and bf16 SDPA's
+    backward (its forward and backward less its forward)."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.models import get_arch
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    a = get_arch("h2o-danube-1.8b")
+    B, H, KV, T, hd = TRAIN_BATCH, a.n_heads, a.n_kv_heads, TRAIN_T, a.hd
+    q, k, v, do = _bwd_inputs(B, H, KV, T, T, hd, hd, seed=7)
+    scale = 1.0 / math.sqrt(hd)
+    kw = dict(causal=True, window=a.window, chunk=None, scale=scale)
+    o, lse = fa._forward(q, k, v, True, a.window, None, scale, with_lse=True)
+    fn = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+    plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+        q, k, v, o, lse, do, **kw)
+    got = fn()
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(), **kw)
+    err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+    del got, want
+    lo, hi = _visible_keys(T, T, True, a.window, None)
+    pairs = B * H * int((hi - lo + 1).clip(min=0).sum())
+    # the five tile products (S, dP, dV, dK, dQ): 2.5x the forward's two
+    flops = 2 * pairs * (3 * hd + 2 * hd)
+    nbytes = (5 * B * H * T * hd + 4 * B * KV * T * hd) * q.element_size() \
+        + B * H * T * 4
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_OPS_PER_S)
+
+    # autograd through the plain attention: forward and backward, less the
+    # forward
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+    def plain_fb():
+        out = ref.flash_attention_ref(*leaves, **kw)
+        torch.autograd.grad(out, leaves, do)
+    plain_fwd = lambda: ref.flash_attention_ref(*leaves, **kw)   # noqa: E731
+    # bf16 SDPA with its GQA broadcast outside the timed call (window 4,096
+    # >= 2,048: the causal mask alone)
+    sq, sk, sv = (x.detach().clone().requires_grad_() for x in (
+        q, k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)))
+
+    def sdpa_fb():
+        out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+                                             scale=scale)
+        torch.autograd.grad(out, (sq, sk, sv), do)
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        sq, sk, sv, is_causal=True, scale=scale)
+    autograd_plain_ms = timer.ms(plain_fb, reps=5) - timer.ms(plain_fwd, reps=5)
+    entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:163 (no TPU kernel: the "
+                    "reference differentiates sdpa through XLA)",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": timer.ms(fn, reps=10), "call_ms": timer.ms(fn, hold=False,
+                                                          reps=10),
+        "plain_ms": timer.ms(plain, reps=5),
+        "autograd_plain_ms": autograd_plain_ms,
+        "bound_ms": bound * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / BF16_TENSOR_OPS_PER_S else "operations",
+        "bound_fp32_ms": max(nbytes / HBM_BYTES_PER_S,
+                             flops / FP32_OPS_PER_S) * 1e3,
+        "library_ms": timer.ms(sdpa_fb, reps=10) - timer.ms(sdpa_fwd, reps=10),
+        "shape": {"arch": "h2o-danube-1.8b", "call": "train", "B": B, "H": H,
+                  "KV": KV, "Tq": T, "Tk": T, "hd": hd, "hdv": hd,
+                  "causal": True, "window": a.window, "chunk": None,
+                  "types": ["torch.bfloat16"] * 2, "visible_pairs": pairs,
+                  "flops": flops, "bytes": nbytes}}
+    del q, k, v, do, o, lse, leaves, sq, sk, sv
+    torch.cuda.empty_cache()
+    return entry
+
+
 def phase_planner() -> None:
     """One step plan of the Cobra session's planner facade under the port's
     default hardware table (one H100 SXM): the cell the minicpm3 phase
@@ -1498,18 +2081,57 @@ def _busy_union_ms(prof) -> float:
     return busy_us / 1e3
 
 
-def _device_busy(fn):
+def _device_busy(fn, split: bool = False):
     """``((fn(), wall seconds), device busy ms)``: one call under a
     ``torch.profiler`` trace of the card's activity, ended by a
     synchronize. Busy is None where the trace holds no device activity
-    ("not measured")."""
+    ("not measured"). With ``split``, also the device time by kind of
+    activity (``_device_ms_by_kind``)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         sync()
         wall = time.perf_counter() - t0
-    return (out, wall), (_busy_union_ms(prof) or None)
+    busy = _busy_union_ms(prof) or None
+    if split:
+        return (out, wall), busy, _device_ms_by_kind(prof)
+    return (out, wall), busy
+
+
+# kinds of device activity in a trace, by a piece of the kernel's name
+# (first match wins); the rest is "other"
+_KINDS = (("attention_backward", "flash_bwd"), ("attention_forward", "flash_fwd"),
+          ("matmul", "gemm"), ("matmul", "cutlass"), ("matmul", "xmma"),
+          ("matmul", "nvjet"),
+          ("reduction", "reduce"), ("softmax_logsumexp", "softmax"),
+          ("embedding", "embedding"), ("copy_cast_fill", "copy"),
+          ("copy_cast_fill", "fill"), ("copy_cast_fill", "memcpy"),
+          ("copy_cast_fill", "memset"), ("elementwise", "elementwise"))
+
+
+def _device_ms_by_kind(prof):
+    """The device time of a trace's kernels, copies and fills summed by
+    kind (``_KINDS``), in ms, each kind's count beside it; overlapping
+    activities each count in full. The kind "other" also lists its five
+    largest names with their ms, so the split can be read and corrected."""
+    from torch.autograd import DeviceType
+    out, other = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = next((k for k, piece in _KINDS if piece in name), "other")
+        ms, n = out.get(kind, (0.0, 0))
+        dt = (e.time_range.end - e.time_range.start) / 1e3
+        out[kind] = (ms + dt, n + 1)
+        if kind == "other":
+            other[e.name[:80]] = other.get(e.name[:80], 0.0) + dt
+    split = {k: {"ms": ms, "count": n} for k, (ms, n) in
+             sorted(out.items(), key=lambda kv: -kv[1][0])}
+    if "other" in split:
+        split["other"]["top"] = sorted(other.items(), key=lambda kv: -kv[1])[:5]
+    return split or None
 
 
 def _step_ms(fn, reps: int = 3):
@@ -2004,8 +2626,18 @@ def main() -> int:
                if n == 0]
     check(not missing,
           f"kernels never launched on the serving paths: {missing}")
+    # training: the backward kernel's parity, then the loop, each with its
+    # counts from 0 (inside phase_train)
+    phase_lm_train_kernel_parity()
+    train_launches = phase_train(TRAIN_ARCH)
+    check(train_launches["flash_attention_bwd"] > 0,
+          "flash_attention_bwd never launched on the training path")
+    phase_train_resume(TRAIN_ARCH, root)
     phase_planner()
-    entries += lm_kernel_entries(_Timer(), attn, scan_launches, scan_shapes)
+    timer = _Timer()
+    entries += lm_kernel_entries(timer, attn, scan_launches, scan_shapes)
+    entries.append(train_kernel_entry(timer,
+                                      train_launches["flash_attention_bwd"]))
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": entries})
     print(smi, flush=True)

@@ -1,0 +1,2 @@
+from .checkpointer import Checkpointer
+__all__ = ["Checkpointer"]

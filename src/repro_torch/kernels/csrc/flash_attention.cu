@@ -71,6 +71,11 @@
 // copies keep a whole tile in flight, beat the CUDA-core body there too on
 // the H100 (PERF.md), so bf16 q takes it at every shape.
 //
+// Both bodies write each row's log-sum-exp of its scaled scores (fp32,
+// (B,H,Tq), natural log; +inf for a row with every key masked) when given
+// a pointer for it: the training forward saves it for the backward kernel
+// (csrc/flash_attention_bwd.cu); serving passes none.
+//
 // Both bodies: few blocks (decode: B x KV) would leave most SMs idle, so
 // the wrapper splits the key range over a grid dimension; each split
 // writes fp32 partials (acc, m, l) and flash_combine folds them in split
@@ -85,6 +90,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -135,6 +141,7 @@ struct Args {
   void* out;
   float* part_acc;  // (splits, B*H*Tq, hdv) when splits > 1
   float* part_ml;   // (splits, B*H*Tq, 2)
+  float* lse;       // (B*H*Tq) row log-sum-exps, or null (serving)
   int B, H, KV, Tq, Tk, hd;
   int hdv;          // v's head dim (<= hd): the output's
   long long sq[4], sk[4], sv[4], so[4];  // element strides (b, head, t, d)
@@ -353,6 +360,10 @@ flash_fwd_simt(const Args a) {
     if (a.splits == 1) {
       float* out = static_cast<float*>(a.out);
       const float denom = fmaxf(l[rr], 1e-30f);
+      if (a.lse != nullptr && lane == 0) {
+        a.lse[(static_cast<long long>(b) * a.H + r.head) * a.Tq + r.t] =
+            l[rr] > 0.f ? m[rr] + logf(l[rr]) : INFINITY;
+      }
 #pragma unroll
       for (int c = 0; c < HC; ++c) {
         const int d = c * 32 + lane;
@@ -776,6 +787,10 @@ flash_fwd_mma(const Args a) {
       __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
       const long long at = b * a.so[0] + r.head * a.so[1] + r.t * a.so[2];
       const float denom = fmaxf(l, 1e-30f);
+      if (a.lse != nullptr && tig == 0) {  // m in log2 units
+        a.lse[(static_cast<long long>(b) * a.H + r.head) * a.Tq + r.t] =
+            l > 0.f ? (m + log2f(l)) * kLn2 : INFINITY;
+      }
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int d = n * 8 + tig * 2;
@@ -814,6 +829,7 @@ __global__ void flash_combine(const Args a) {
     lsum += a.part_ml[at * 2 + 1] * w;
     if (d < a.hdv) acc += a.part_acc[at * a.hdv + d] * w;
   }
+  if (a.lse != nullptr && d == 0) a.lse[row] = lsum > 0.f ? mx + logf(lsum) : INFINITY;
   if (d < a.hdv) {
     const int t = static_cast<int>(row % a.Tq);
     const int head = static_cast<int>((row / a.Tq) % a.H);
@@ -914,7 +930,8 @@ cudaError_t launch_mma_hd(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. q and out share q_dtype; k and v
+// dtype codes: 0 = float32, 1 = bfloat16. lse: null, or (B,H,Tq) fp32 for
+// each row's log-sum-exp. q and out share q_dtype; k and v
 // share kv_dtype. The (q, k/v) pairs built are fp32/fp32, bf16/fp32 (the
 // serving path: bf16 activations over the fp32 cache) and bf16/bf16; bf16
 // q takes the mma body, fp32 q the simt body. hd is q's and k's head dim,
@@ -925,7 +942,7 @@ cudaError_t launch_mma_hd(const Args& a, cudaStream_t s) {
 // its width and its base 16-byte aligned).
 extern "C" int cobra_flash_attention(
     const void* q, const void* k, const void* v, void* out, void* part_acc,
-    void* part_ml, int B, int H, int KV, int Tq, int Tk, int hd, int hdv,
+    void* part_ml, void* lse, int B, int H, int KV, int Tq, int Tk, int hd, int hdv,
     const long long* sq, const long long* sk, const long long* sv,
     const long long* so, int causal, int window, int chunk, float scale,
     int group, int n_hgroups, int bt, int splits, int q_dtype, int kv_dtype,
@@ -937,6 +954,7 @@ extern "C" int cobra_flash_attention(
   a.out = out;
   a.part_acc = static_cast<float*>(part_acc);
   a.part_ml = static_cast<float*>(part_ml);
+  a.lse = static_cast<float*>(lse);
   a.B = B;
   a.H = H;
   a.KV = KV;

@@ -1,4 +1,4 @@
-"""Flash attention (forward): the CUDA kernel's wrapper.
+"""Flash attention: the CUDA kernels' wrappers, forward and backward.
 
 The attention of the LM serving path (``models/layers.attention_gqa`` and
 ``attention_mla``): online-softmax attention over q ``(B, H, Tq, hd)``, k
@@ -17,8 +17,18 @@ follows the shape (8 warps for a long bf16 call, 4 for decode).
 
 The wrapper dispatches on the tensor's device: a CUDA tensor launches the
 kernel (and bumps ``flash_attention.launches``), a CPU tensor takes the
-plain version :func:`.ref.flash_attention_ref`. There is no fallback from
-one to the other. It casts nothing and copies nothing: q and k/v may be
+plain version :func:`.ref.flash_attention_ref`, which autograd
+differentiates. There is no fallback from one to the other. On the card,
+with grad enabled and an input that requires it (training), the call goes
+through an ``autograd.Function``: its forward is the same kernel, which
+then also writes each row's log-sum-exp, and its backward is
+:func:`flash_attention_bwd`, the kernel of ``csrc/flash_attention_bwd.cu``
+(deterministic: two calls give the same bits; bf16 on the tensor cores
+up to hd 128), counted in ``flash_attention_bwd.launches``. The backward
+takes q, k and v of one type, bf16 or fp32 (the training path's; a bf16 q
+over an fp32 cache is serving's and raises under grad).
+
+The forward casts nothing and copies nothing: q and k/v may be
 strided views (the (B, T, H, hd) projection, the (B, S, KV, hd) cache), in
 the type pairs (q, k/v) fp32/fp32, bf16/fp32 and bf16/bf16; another pair
 raises. The output has q's type and is a (B, H, Tq, hdv) view of
@@ -36,19 +46,29 @@ import torch
 
 from . import build, ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_attention_bwd"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "cobra_flash_attention": (
-        _P, _P, _P, _P, _P, _P,                  # q, k, v, out, partials
+        _P, _P, _P, _P, _P, _P, _P,              # q, k, v, out, partials, lse
         _I, _I, _I, _I, _I, _I, _I,              # B, H, KV, Tq, Tk, hd, hdv
         _STRIDES, _STRIDES, _STRIDES, _STRIDES,  # q, k, v, out strides
         _I, _I, _I, ctypes.c_float,              # causal, window, chunk, scale
         _I, _I, _I, _I,                          # group, n_hgroups, bt, splits
         _I, _I, _I, _P),                         # dtypes, vec, stream
+}
+_BWD_SIGNATURES = {
+    "cobra_flash_attention_bwd": (
+        _P, _P, _P, _P, _P, _P, _P,              # q, k, v, o, dout, lse, delta
+        _P, _P, _P,                              # dq, dk, dv
+        _I, _I, _I, _I, _I, _I, _I,              # B, H, KV, Tq, Tk, hd, hdv
+        _STRIDES, _STRIDES, _STRIDES, _STRIDES,  # q, k, v, o strides
+        _STRIDES, _STRIDES, _STRIDES, _STRIDES,  # dout, dq, dk, dv strides
+        _I, _I, _I, ctypes.c_float,              # causal, window, chunk, scale
+        _I, _I, _P),                             # dtype, vec, stream
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -62,6 +82,10 @@ _MIN_TILES_PER_SPLIT = 4
 
 def _lib():
     return build.load("flash_attention", _SIGNATURES)
+
+
+def _bwd_lib():
+    return build.load("flash_attention_bwd", _BWD_SIGNATURES)
 
 
 def _strides(t: torch.Tensor):
@@ -82,19 +106,7 @@ def _splits(blocks: int, key_tiles: int, sms: int) -> int:
                       key_tiles // _MIN_TILES_PER_SPLIT))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: Optional[int] = None,
-                    chunk: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q (B, H, Tq, hd), k (B, KV, Tk, hd), v (B, KV, Tk, hdv) with
-    hdv <= hd -> (B, H, Tq, hdv) in q's type. Queries sit at the tail of
-    the keys (query i at position Tk - Tq + i); ``scale`` defaults to
-    1/sqrt(hd)."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       chunk=chunk, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _check(q, k, v, window, chunk) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must share a device")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
@@ -104,7 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"0 < hdv <= hd, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, Tq, hd = q.shape
-    KV, Tk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    KV, hdv = k.shape[1], v.shape[3]
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)} (H % KV must be 0)")
@@ -122,12 +134,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, n in (("window", window), ("chunk", chunk)):
         if n is not None and n < 1:
             raise ValueError(f"flash_attention: {name} must be >= 1, got {n}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    chunk: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, H, Tq, hd), k (B, KV, Tk, hd), v (B, KV, Tk, hdv) with
+    hdv <= hd -> (B, H, Tq, hdv) in q's type. Queries sit at the tail of
+    the keys (query i at position Tk - Tq + i); ``scale`` defaults to
+    1/sqrt(hd). Differentiable on both devices."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       chunk=chunk, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v, window, chunk)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if not q.dtype == k.dtype == v.dtype:
+            raise ValueError(f"flash_attention: the backward kernel takes q, "
+                             f"k and v of one type, got {q.dtype}, {k.dtype}")
+        return _FlashAttention.apply(q, k, v, causal, window, chunk, scale)
+    return _forward(q, k, v, causal, window, chunk, scale, with_lse=False)[0]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its rows' log-sum-exps saved; the backward
+    kernel for the gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, scale):
+        out, lse = _forward(q, k, v, causal, window, chunk, scale,
+                            with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, chunk, scale)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, *ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
+def _forward(q, k, v, causal, window, chunk, scale, with_lse: bool):
+    """One launch of the forward kernel on checked inputs: (out, the rows'
+    log-sum-exps (B, H, Tq) fp32 when ``with_lse``, else None)."""
+    B, H, Tq, hd = q.shape
+    KV, Tk, hdv = k.shape[1], k.shape[2], v.shape[3]
     # (B, Tq, H, hdv) memory seen as (B, H, Tq, hdv)
     out = torch.empty((B, Tq, H, hdv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     rep = H // KV
     block_rows = _rows(q.dtype, Tq)
     group = min(rep, block_rows)
@@ -152,6 +215,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             0 if part_acc is None else part_acc.data_ptr(),
             0 if part_ml is None else part_ml.data_ptr(),
+            0 if lse is None else lse.data_ptr(),
             B, H, KV, Tq, Tk, hd, hdv,
             _strides(q), _strides(k), _strides(v), _strides(out),
             int(causal), window or 0, chunk or 0, float(scale),
@@ -161,7 +225,71 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        chunk: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at q, k, v,
+    from its output ``o``, its rows' log-sum-exps ``lse`` (B, H, Tq) fp32
+    and the output's gradient ``dout``, in the inputs' types. A CUDA
+    tensor launches the kernel (and bumps ``flash_attention_bwd.launches``),
+    a CPU tensor takes :func:`.ref.flash_attention_bwd_ref`."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                           causal=causal, window=window,
+                                           chunk=chunk, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    _check(q, k, v, window, chunk)
+    B, H, Tq, hd = q.shape
+    KV, Tk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype
+                                     for t in (k, v, o, dout)):
+        raise ValueError(f"flash_attention_bwd: q, k, v, o and dout must "
+                         f"share a type in {list(_DTYPES)}")
+    if tuple(o.shape) != (B, H, Tq, hdv) or tuple(dout.shape) != (B, H, Tq, hdv):
+        raise ValueError(f"flash_attention_bwd: o and dout must be "
+                         f"{(B, H, Tq, hdv)}")
+    if any(t.device != q.device for t in (o, lse, dout)):
+        raise ValueError("flash_attention_bwd: every input must be on one "
+                         "device")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Tq) \
+            or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous "
+                         f"float32 {(B, H, Tq)}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    # (B, T, heads, dim) memory seen as (B, heads, T, dim): the projections'
+    dq = torch.empty((B, Tq, H, hd), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk = torch.empty((B, Tk, KV, hd), dtype=k.dtype,
+                     device=q.device).transpose(1, 2)
+    dv = torch.empty((B, Tk, KV, hdv), dtype=v.dtype,
+                     device=q.device).transpose(1, 2)
+    if B == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _bwd_lib().cobra_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, KV, Tq, Tk, hd, hdv,
+            _strides(q), _strides(k), _strides(v), _strides(o),
+            _strides(dout), _strides(dq), _strides(dk), _strides(dv),
+            int(causal), window or 0, chunk or 0, float(scale),
+            _DTYPES[q.dtype],
+            int(all(build.rows16(t) for t in (q, k, v, dout))),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -1,8 +1,9 @@
 """Public kernel entry points, dispatched on the tensor's device.
 
 A CUDA tensor goes to the hand-written Hopper kernels (``join_probe``,
-``build_direct_table``, ``segment_reduce``, ``flash_attention``,
-``rwkv6_scan``); a CPU tensor to their plain torch versions in :mod:`.ref`.
+``build_direct_table``, ``segment_reduce``, ``flash_attention`` with its
+backward ``flash_attention_bwd``, ``rwkv6_scan``); a CPU tensor to their
+plain torch versions in :mod:`.ref`.
 The reference package's off-by-default ``use_pallas`` switch has no
 counterpart: on the card the kernels always run. ``equi_probe`` keeps the
 reference's key-space gate — a direct-address table only for
@@ -18,7 +19,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from . import ref
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .join_probe import build_direct_table, join_probe
 from .rwkv6_scan import rwkv6_scan
 from .segment_reduce import segment_reduce
@@ -32,6 +33,7 @@ KERNELS = {"join_probe": join_probe,
            "build_direct_table": build_direct_table,
            "segment_reduce": segment_reduce,
            "flash_attention": flash_attention,
+           "flash_attention_bwd": flash_attention_bwd,
            "rwkv6_scan": rwkv6_scan}
 
 MAX_DIRECT_KEY_SPACE = 1 << 22

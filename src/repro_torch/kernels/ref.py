@@ -6,7 +6,9 @@
     ``join_probe`` build and probe), :func:`join_probe_ref` (the
     searchsorted probe ``ops.equi_probe`` takes without a key space) and
     :func:`segment_reduce_ref`, and for the LM kernels
-    :func:`flash_attention_ref` and :func:`rwkv6_scan_ref`;
+    :func:`flash_attention_ref` (with its log-sum-exp),
+    :func:`flash_attention_bwd_ref` (its gradients) and
+    :func:`rwkv6_scan_ref`;
   * numpy twins (``*_np``) — the ``"numpy"`` compiled backend, copied from
     the reference package.
 """
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 __all__ = ["build_direct_table_ref", "slot_gather_ref", "join_probe_ref",
-           "segment_reduce_ref", "flash_attention_ref", "rwkv6_scan_ref",
+           "segment_reduce_ref", "flash_attention_ref",
+           "flash_attention_bwd_ref", "rwkv6_scan_ref",
            "join_probe_np", "segment_reduce_np", "SEGMENT_OPS"]
 
 SEGMENT_OPS = ("sum", "count", "min", "max")
@@ -95,24 +98,13 @@ def segment_reduce_ref(values: torch.Tensor, segment_ids: torch.Tensor,
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: Optional[int] = None,
-                        chunk: Optional[int] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,H,Tq,hd), k (B,KV,Tk,hd), v (B,KV,Tk,hdv), GQA broadcast, fp32
-    softmax; the queries sit at the tail of the keys. A row with every key
-    masked gives 0 (softmax over -inf is NaN, set to 0), as the kernel's
-    max(l, 1e-30) does. Returns (B,H,Tq,hdv) in q's type (hdv = hd but for
-    MLA, whose v head is narrower)."""
-    B, H, Tq, hd = q.shape
-    KV, Tk = k.shape[1], k.shape[2]
-    rep = H // KV
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qf = q.reshape(B, KV, rep, Tq, hd).float()
-    scores = torch.einsum("bkrqh,bksh->bkrqs", qf, k.float()) * scale
-    qpos = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
-    kpos = torch.arange(Tk, device=q.device)[None, :]
-    m = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+def _attention_mask(Tq: int, Tk: int, causal: bool, window: Optional[int],
+                    chunk: Optional[int], device) -> torch.Tensor:
+    """(Tq, Tk) booleans, True where query i (at position Tk - Tq + i) may
+    see key j: the kernels' causal / window / chunk masks."""
+    qpos = torch.arange(Tq, device=device)[:, None] + (Tk - Tq)
+    kpos = torch.arange(Tk, device=device)[None, :]
+    m = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
     if causal:
         m &= kpos <= qpos
     if window is not None:
@@ -120,12 +112,82 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if chunk is not None:
         m &= torch.div(kpos, chunk, rounding_mode="floor") == \
             torch.div(qpos, chunk, rounding_mode="floor")
+    return m
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        chunk: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        return_lse: bool = False):
+    """q (B,H,Tq,hd), k (B,KV,Tk,hd), v (B,KV,Tk,hdv), GQA broadcast, fp32
+    softmax; the queries sit at the tail of the keys. A row with every key
+    masked gives 0 (softmax over -inf is NaN, set to 0), as the kernel's
+    max(l, 1e-30) does. Returns (B,H,Tq,hdv) in q's type (hdv = hd but for
+    MLA, whose v head is narrower); with ``return_lse`` also each row's
+    log-sum-exp of its scaled scores, fp32 (B,H,Tq) (+inf for a row with
+    every key masked, so that exp(s - lse) is 0 there), which the backward
+    reads."""
+    B, H, Tq, hd = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q.reshape(B, KV, rep, Tq, hd).float()
+    scores = torch.einsum("bkrqh,bksh->bkrqs", qf, k.float()) * scale
+    m = _attention_mask(Tq, Tk, causal, window, chunk, q.device)
     scores.masked_fill_(~m, float("-inf"))
+    lse = None
+    if return_lse:
+        lse = torch.logsumexp(scores, dim=-1).reshape(B, H, Tq)
+        lse = torch.where(torch.isneginf(lse), torch.full_like(lse, math.inf),
+                          lse)
     p = torch.softmax(scores, dim=-1)
     del scores
-    p.nan_to_num_(nan=0.0)
+    # in place only where autograd does not need softmax's output
+    p = p.nan_to_num(nan=0.0) if p.requires_grad else p.nan_to_num_(nan=0.0)
     out = torch.einsum("bkrqs,bksh->bkrqh", p, v.float())
-    return out.reshape(B, H, Tq, v.shape[-1]).to(q.dtype)
+    out = out.reshape(B, H, Tq, v.shape[-1]).to(q.dtype)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor,
+                            do: torch.Tensor, causal: bool = True,
+                            window: Optional[int] = None,
+                            chunk: Optional[int] = None,
+                            scale: Optional[float] = None):
+    """The gradients of :func:`flash_attention_ref` from its saved output
+    ``o`` and log-sum-exp ``lse`` (B,H,Tq), given the output's gradient
+    ``do``: the standard formulas, in fp32::
+
+        D  = rowsum(dO * O)            P  = exp(S * scale - lse)
+        dV = P^T dO                    dS = P * (dO V^T - D)
+        dQ = dS K * scale              dK = dS^T Q * scale
+
+    under the forward's masks, each GQA group's heads summed into its K/V
+    head. Returns (dq, dk, dv) in q's, k's and v's types. The plain version
+    beside the ``flash_attention_bwd`` kernel."""
+    B, H, Tq, hd = q.shape
+    KV, Tk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    rep = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q.reshape(B, KV, rep, Tq, hd).float()
+    kf, vf = k.float(), v.float()
+    dof = do.reshape(B, KV, rep, Tq, hdv).float()
+    delta = (dof * o.reshape(B, KV, rep, Tq, hdv).float()).sum(-1)
+    s = torch.einsum("bkrqh,bksh->bkrqs", qf, kf) * scale
+    m = _attention_mask(Tq, Tk, causal, window, chunk, q.device)
+    p = torch.exp(s - lse.reshape(B, KV, rep, Tq, 1).float())
+    del s
+    p.masked_fill_(~m, 0.0)
+    dv = torch.einsum("bkrqs,bkrqh->bksh", p, dof)
+    ds = torch.einsum("bkrqh,bksh->bkrqs", dof, vf)
+    ds.sub_(delta[..., None]).mul_(p)
+    del p
+    dq = torch.einsum("bkrqs,bksh->bkrqh", ds, kf) * scale
+    dk = torch.einsum("bkrqs,bkrqh->bksh", ds, qf) * scale
+    return (dq.reshape(B, H, Tq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

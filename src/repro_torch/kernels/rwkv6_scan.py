@@ -13,8 +13,10 @@ chunk-parallel scan over chunks of :data:`CHUNK_LEN` tokens, whose scratch
 
 The wrapper dispatches on the tensor's device: a CUDA tensor launches the
 kernel (and bumps ``rwkv6_scan.launches``), a CPU tensor takes the plain
-version :func:`.ref.rwkv6_scan_ref`. There is no fallback from one to the
-other. r/k/v may be bf16 or fp32 (one type for the three) and strided;
+version :func:`.ref.rwkv6_scan_ref` (which autograd differentiates). There
+is no fallback from one to the other. The kernel has no backward yet
+(ROADMAP A2.7): on the card, with grad enabled and an input that requires
+it, the call raises rather than return an output cut from the graph. r/k/v may be bf16 or fp32 (one type for the three) and strided;
 w_log, u and the state are fp32. y has r's type and is a (B, H, T, V) view
 of (B, T, H, V) memory, so the caller's transpose back needs no copy; the
 final state is a new fp32 tensor.
@@ -71,6 +73,12 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
     tensors = [k, v, w_log, u] + ([state] if state is not None else [])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [r] + tensors):
+        raise RuntimeError(
+            "rwkv6_scan: no backward kernel on the card yet (a reverse "
+            "chunked scan, ROADMAP A2.7); the kernel's output would carry no "
+            "gradient. Train RWKV6 on the CPU (device='cpu'), or run the "
+            "scan under torch.no_grad() for inference")
     if any(t.device != r.device for t in tensors):
         raise ValueError("rwkv6_scan: every input must be on one device")
     if r.ndim != 4 or k.shape != r.shape or w_log.shape != r.shape \

@@ -638,9 +638,11 @@ def init_embed(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def embed(params: Params, tokens: torch.Tensor, pol=NULL_POLICY) -> torch.Tensor:
-    tok = params["tok"]
-    return tok.index_select(0, tokens.reshape(-1).long()).view(
-        *tokens.shape, tok.shape[1])
+    """The token rows of the table. ``F.embedding``, not ``index_select``:
+    on CUDA the latter's backward adds rows with atomics, in another order
+    each run, while the embedding backward sorts the tokens and sums each
+    row in a fixed order, so a training step is bit-identical run to run."""
+    return F.embedding(tokens.long(), params["tok"])
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig,

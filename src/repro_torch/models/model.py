@@ -26,8 +26,11 @@ Modality frontends are stubs, as in the reference: a vision model
 in place of tokens, and the encoder of an encoder-decoder model (seamless's
 speech encoder) precomputed frame embeddings as ``enc_inputs``.
 
-The training losses (``lm_loss``, ``loss_fn``) come with the training
-slice (ROADMAP A2.6).
+The training losses: :func:`lm_loss` (next-token cross entropy in fp32,
+labels -100 masked) and :func:`loss_fn` (the forward over a batch plus
+the weighted MoE aux loss), differentiated by autograd: on the card the
+attention's backward is the ``flash_attention_bwd`` kernel, on the CPU
+autograd through the plain attention.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from .layers import (NULL_POLICY, apply_rope, attention_gqa, attention_mla,
                      rms_norm, rwkv6_block, unembed)
 from ..kernels import ops
 
-__all__ = ["init_params", "make_caches", "forward"]
+__all__ = ["init_params", "make_caches", "forward", "lm_loss", "loss_fn"]
 
 Params = Dict[str, Any]
 
@@ -317,3 +320,34 @@ def _forward_encdec(params, cfg, h, positions, caches, idx, pol, enc_inputs):
         h = h + mlp(bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps), cfg.act,
                     pol)
     return h
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            pol=NULL_POLICY) -> torch.Tensor:
+    """Next-token cross entropy in fp32; labels -100 are masked."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = lse - gold
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            pol=NULL_POLICY, aux_weight: float = 0.01) -> torch.Tensor:
+    """The batch's loss: ``embeds`` (a stubbed frontend's) or ``tokens``,
+    ``positions`` (0..T-1 by default), ``enc_embeds`` for an
+    encoder-decoder model, ``labels``; plus ``aux_weight`` times the MoE
+    aux loss."""
+    inputs = batch.get("embeds", batch.get("tokens"))
+    positions = batch.get("positions")
+    if positions is None:
+        B, T = inputs.shape[:2]
+        positions = torch.arange(T, device=inputs.device)[None].expand(B, T)
+    logits, _, aux = forward(params, cfg, inputs, positions, pol=pol,
+                             enc_inputs=batch.get("enc_embeds"))
+    return lm_loss(logits, batch["labels"], pol) + aux_weight * aux

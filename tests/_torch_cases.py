@@ -101,6 +101,31 @@ RWKV_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 ATTN_KERNEL_TOL = {"float32": {"rtol": 2e-5, "atol": 2e-5},
                    "bfloat16": {"rtol": 1.6e-2, "atol": 1e-4}}
 
+# flash attention's backward against its plain version on the same inputs
+# (B, H, KV, Tq, Tk, hd, hdv, dtype, causal, window, chunk): every mask the
+# forward serves (causal, sliding window, chunk, none; Tq != Tk both ways
+# for cross attention), GQA and H = KV, hd 16..160 and MLA's hdv < hd,
+# ragged tiles, both types
+ATTN_BWD_CASES = [
+    (2, 8, 2, 150, 150, 80, 80, "bfloat16", True, 64, None),     # danube: window
+    (1, 4, 4, 130, 130, 64, 64, "bfloat16", True, None, None),   # zamba2: H = KV
+    (1, 8, 2, 200, 200, 128, 128, "bfloat16", True, None, None),  # qwen2-vl: hd 128
+    (1, 4, 1, 100, 100, 160, 160, "bfloat16", True, None, None),  # stablelm: hd 160
+    (1, 4, 4, 120, 120, 96, 64, "bfloat16", True, None, None),   # minicpm3: MLA
+    (1, 4, 2, 200, 200, 128, 128, "bfloat16", True, None, 64),   # llama4: chunk
+    (1, 4, 4, 100, 100, 64, 64, "bfloat16", False, None, None),  # encoder
+    (1, 4, 4, 70, 130, 64, 64, "bfloat16", False, None, None),   # cross, Tq < Tk
+    (1, 4, 4, 130, 70, 64, 64, "bfloat16", False, None, None),   # cross, Tq > Tk
+    (1, 2, 2, 1, 33, 16, 16, "bfloat16", True, None, None),      # one query
+    (1, 4, 2, 70, 70, 45, 45, "bfloat16", True, 16, None),       # hd off 8: scalar loads
+    (1, 4, 2, 77, 77, 32, 32, "float32", True, None, None),
+    (2, 4, 2, 50, 90, 45, 45, "float32", True, 16, None),        # tail queries
+]
+# the kernel's gradient against the plain version's, as a fraction of the
+# gradient's peak: bf16 outputs two roundings (2 * 2**-8: one of the
+# output, the rest the fp32 sums' order); fp32 outputs, the sums' order
+ATTN_BWD_TOL = {"bfloat16": 2 * 2.0 ** -8, "float32": 1e-4}
+
 
 def attention_inputs(B, H, KV, Tq, Tk, hd, seed=0):
     """q (B,H,Tq,hd), k/v (B,KV,Tk,hd) float32 numpy."""

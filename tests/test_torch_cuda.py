@@ -45,6 +45,14 @@ runs where only torch is installed::
   * ``flash_attention`` with no causal mask and bf16 q (seamless-m4t's
     encoder and cross attention), at a ragged Tq < Tk, Tq > Tk and decode
     over 4,608 keys;
+  * ``flash_attention``'s backward (``flash_attention_bwd``) against its
+    plain version on the same inputs, over every mask the forward serves,
+    GQA and H = KV, hd 16..160, MLA's hdv < hd, ragged tiles, both types,
+    and rows off 16 bytes: dq, dk, dv within two bf16 roundings of their
+    peak (1e-4 of it in fp32), a second call bit-identical; the forward's
+    row log-sum-exps (single pass, split-key combine, CUDA-core body);
+    training's backward through the wrappers: attention's gradients from
+    the kernel (one launch each way), the scan raising under grad;
   * a scaled ``Server.generate`` on the card against the same server on
     the CPU (fp32 parameters: the same tokens, logits within 1e-3), for
     danube, rwkv6, qwen2-vl (M-RoPE) and minicpm3 (MLA); for
@@ -70,7 +78,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (ATTN_EXTRA, ATTN_KERNEL_TOL, ATTN_SWEEP, PROBE_CASES,
+from _torch_cases import (ATTN_BWD_CASES, ATTN_BWD_TOL, ATTN_EXTRA,
+                          ATTN_KERNEL_TOL, ATTN_SWEEP, PROBE_CASES,
                           RWKV_SWEEP, RWKV_TOL, SEGMENT_CASES, TORCH_DTYPES,
                           attention_inputs, rwkv_inputs, t32)
 from repro_torch.api import CobraSession, OptimizerConfig, RuleSet
@@ -86,8 +95,9 @@ from repro_torch.relational import SLOW_REMOTE
 from repro_torch.relational import algebra as A
 from repro_torch.runtime import ServingRuntime
 
-# the module (the package re-exports its function under the same name)
+# the modules (the package re-exports their functions under the same names)
 rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -158,7 +168,7 @@ def test_launches_are_counted_on_the_card_only(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"join_probe": 1, "build_direct_table": 1,
                                    "segment_reduce": 1, "flash_attention": 0,
-                                   "rwkv6_scan": 0}
+                                   "flash_attention_bwd": 0, "rwkv6_scan": 0}
 
 
 def _view(a, offset, cuda):
@@ -545,6 +555,101 @@ def test_flash_attention_reads_strided_views(cuda):
                                    k.contiguous(), v.contiguous(), window=8)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     assert got.transpose(1, 2).is_contiguous()
+
+
+def _bwd_inputs(cuda, B, H, KV, Tq, Tk, hd, hdv, dt, seed=0, offset=False):
+    rng = np.random.default_rng(seed)
+    return (_on(rng.standard_normal((B, H, Tq, hd)), cuda, dt, offset),
+            _on(rng.standard_normal((B, KV, Tk, hd)), cuda, dt, offset),
+            _on(rng.standard_normal((B, KV, Tk, hdv)), cuda, dt, offset),
+            _on(rng.standard_normal((B, H, Tq, hdv)), cuda, dt, offset))
+
+
+def _assert_grads_close(got, want, like, dt):
+    for g, w, x in zip(got, want, like):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        peak = float(w.abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= ATTN_BWD_TOL[dt] * peak + 1e-6, (err, peak)
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("B,H,KV,Tq,Tk,hd,hdv,dt,causal,window,chunk",
+                         ATTN_BWD_CASES)
+def test_flash_attention_backward_matches_plain(cuda, B, H, KV, Tq, Tk, hd,
+                                                hdv, dt, causal, window,
+                                                chunk, offset):
+    # offset: every input a view one element into its buffer, its rows off
+    # 16 bytes (the tensor-core body's element-by-element loads)
+    q, k, v, do = _bwd_inputs(cuda, B, H, KV, Tq, Tk, hd, hdv, dt,
+                              offset=offset)
+    kw = dict(causal=causal, window=window, chunk=chunk)
+    o, lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     return_lse=True, **kw)
+    o = o.to(q.dtype)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(), **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, (q, k, v), dt)
+    # deterministic: a second call gives the same bits
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("Tq,Tk,hd,dt,causal,window", [
+    (150, 150, 80, "bfloat16", True, 64), (1, 4500, 80, "bfloat16", True, 4096),
+    (77, 77, 32, "float32", True, None), (1, 300, 64, "float32", False, None)])
+def test_flash_attention_forward_writes_the_rows_log_sum_exp(cuda, Tq, Tk, hd,
+                                                             dt, causal,
+                                                             window):
+    # single pass, split-key combine (Tq = 1) and the CUDA-core body
+    q, k, v, _ = _bwd_inputs(cuda, 2, 8, 2, Tq, Tk, hd, hd, dt)
+    out, lse = fa._forward(q, k, v, causal, window, None, hd ** -0.5,
+                           with_lse=True)
+    want_out, want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(out.float(), want_out.float(),
+                               **ATTN_KERNEL_TOL[dt])
+
+
+def test_backward_through_the_wrappers_on_the_card(cuda):
+    """Training's backward on the card: attention's gradients come from
+    the backward kernel (one launch a call); the scan, which has no
+    backward kernel yet, raises instead of returning a detached output."""
+    B, H, KV, T, hd = 2, 8, 2, 96, 80
+    q, k, v, do = _bwd_inputs(cuda, B, H, KV, T, T, hd, hd, "bfloat16")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.attention(*leaves, window=64)
+    assert out.grad_fn is not None
+    out.backward(do)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    o, lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     window=64, return_lse=True)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       out.detach().float(), lse, do.float(),
+                                       window=64)
+    _assert_grads_close([x.grad for x in leaves], want, leaves, "bfloat16")
+    # serving (no grad) launches no backward and saves nothing
+    with torch.no_grad():
+        assert ops.attention(*leaves, window=64).grad_fn is None
+    # the scan under grad raises; without grad it runs
+    r, kk, vv, w, u, state = (_on(a, cuda) for a in rwkv_inputs(1, 2, 70, 16,
+                                                                 16))
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ops.rwkv_scan(r.requires_grad_(), kk, vv, w, u)
+    with torch.no_grad():
+        y, _ = ops.rwkv_scan(r, kk, vv, w, u)
+    assert y.shape == (1, 2, 70, 16)
+    # bf16 q over an fp32 cache is serving's pair: no backward for it
+    with pytest.raises(ValueError, match="one type"):
+        ops.attention(leaves[0], k.float(), v.float())
 
 
 def _scan_case(cuda, B, H, T, K, V, dt, with_state, seed=0, decay=None,

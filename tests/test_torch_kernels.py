@@ -162,9 +162,14 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     x = torch.ones(1, 2, 3, 16)
     ops.attention(x, x, x)
     ops.rwkv_scan(x, x, x, -x, torch.zeros(2, 16))
+    # training: the attention's backward, through autograd and directly
+    xg = x.clone().requires_grad_()
+    ops.attention(xg, x, x).sum().backward()
+    o, lse = ref.flash_attention_ref(x, x, x, return_lse=True)
+    ops.KERNELS["flash_attention_bwd"](x, x, x, o, lse, x)
     assert ops.launch_counts() == {"join_probe": 0, "build_direct_table": 0,
                                    "segment_reduce": 0, "flash_attention": 0,
-                                   "rwkv6_scan": 0}
+                                   "flash_attention_bwd": 0, "rwkv6_scan": 0}
 
 
 @pytest.mark.parametrize("call", ["join_probe", "build_direct_table",

@@ -8,7 +8,8 @@
   * ``chip_smoke.py`` exits non-zero and prints no result where CUDA is
     unavailable, and when it stands alone outside a checkout;
   * the entry points run on the card unless the caller names the CPU: the
-    LM ``Server`` without a device raises where CUDA is unavailable.
+    LM ``Server`` and the trainer ``train`` without a device raise where
+    CUDA is unavailable.
 """
 
 import ast
@@ -82,6 +83,17 @@ def test_server_without_a_device_needs_cuda(monkeypatch):
         Server(ServeConfig(arch="rwkv6-3b"))
     assert Server(ServeConfig(arch="rwkv6-3b"), device="cpu").device.type \
         == "cpu"
+
+
+def test_train_without_a_device_needs_cuda(monkeypatch):
+    from repro_torch.launch.train import TrainConfig, train
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(TrainConfig(steps=1))
+    out = train(TrainConfig(steps=1, global_batch=2, seq_len=8,
+                            device="cpu"), progress=lambda _: None)
+    assert out["final_step"] == 1
+    assert out["params"]["ln_f"].device.type == "cpu"
 
 
 def _run_smoke(cwd: Path):
