@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the relational kernels of two checkouts in turns, on one NVIDIA GPU.
 
-    python3 chip_kernel_ab.py OTHER [--rounds R] [--attention [--arch NAME ...]]
+    python3 chip_kernel_ab.py OTHER [--rounds R]
+                              [--attention [--arch NAME ...] | --attention-bwd]
 
 OTHER is another checkout of the repository (for instance the parent
 commit, unpacked with ``git archive`` into a git-ignored directory). The
@@ -32,6 +33,15 @@ the cache holds bf16 values), qwen2-vl-72b (64 over 8, hd 128) and
 minicpm3-4b (MLA: 40 heads, q.k hd 96 = 64 + 32 with the rope key shared
 by the heads, v hd 64 a strided slice of the expanded latent, which holds
 fp32 values). Entries are named ``ARCH_prefill`` and ``ARCH_decode``.
+
+With ``--attention-bwd`` the turns time ``flash_attention_bwd`` instead, at
+the shapes of ``chip_smoke.TRAIN_KERNEL_SHAPES``: danube's training call
+(4 x 2,048, H 32 / KV 8, hd 80, causal, window 4,096), and qwen2-vl's (H 64
+/ KV 8, hd 128) and stablelm's (H 32 / KV 8, hd 160) at 1 x 2,048, causal,
+over seeded bf16 inputs with the plain version's output and log-sum-exps
+(so no turn builds the forward kernel). Each is held to the plain version
+in fp32 within ``chip_smoke.BWD_TOL`` bf16 roundings of its peak. Entries
+are named by the architecture.
 """
 
 import importlib
@@ -112,6 +122,42 @@ def attention_turn(src: str, archs) -> dict:
     return out
 
 
+def attention_bwd_turn(src: str) -> dict:
+    """One turn of ``--attention-bwd``, in this process."""
+    sys.path.insert(0, src)
+    sys.path.insert(1, str(HERE))
+    import math
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ref
+    from repro_torch.models import get_arch
+    build.build_all(("flash_attention_bwd",))
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    timer = cs._Timer()
+    out = {"src": src}
+    for arch_name, B, _ in cs.TRAIN_KERNEL_SHAPES:
+        a = get_arch(arch_name)
+        H, KV, T, hd = a.n_heads, a.n_kv_heads, cs.TRAIN_T, a.hd
+        q, k, v, do = cs._bwd_inputs(B, H, KV, T, T, hd, hd, seed=7)
+        kw = dict(causal=True, window=a.window, chunk=None,
+                  scale=1.0 / math.sqrt(hd))
+        o, lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         return_lse=True, **kw)
+        o = o.to(q.dtype).transpose(1, 2).contiguous().transpose(1, 2)
+        fn = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           o.float(), lse, do.float(), **kw)
+        errs = [cs._rel_peak(g, w) for g, w in zip(fn(), want)]
+        cs.check(all(e <= cs.BWD_TOL * 2.0 ** -8 for e in errs),
+                 f"{src}: flash_attention_bwd at {arch_name}: {errs}")
+        out[arch_name] = {"ms": timer.ms(fn, reps=20),
+                          "clean_ms": timer.ms(fn, clean=True, reps=20),
+                          "call_ms": timer.ms(fn, hold=False, reps=20),
+                          "kernel_ms": cs._kernel_ms(fn), "rel_err": errs}
+        del q, k, v, do, o, lse, want
+    return out
+
+
 def turn(src: str) -> dict:
     """One turn, in this process: the kernels of the checkout at ``src``."""
     sys.path.insert(0, src)
@@ -167,11 +213,16 @@ def turn(src: str) -> dict:
 
 def main() -> int:
     attention = "--attention" in sys.argv
+    attention_bwd = "--attention-bwd" in sys.argv
     archs = [sys.argv[i + 1] for i, a in enumerate(sys.argv)
              if a == "--arch"] or list(ATTENTION_ARCHS)
     if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
-        out = attention_turn(sys.argv[2], archs) if attention \
-            else turn(sys.argv[2])
+        if attention_bwd:
+            out = attention_bwd_turn(sys.argv[2])
+        elif attention:
+            out = attention_turn(sys.argv[2], archs)
+        else:
+            out = turn(sys.argv[2])
         print(json.dumps(out), flush=True)
         return 0
     if len(sys.argv) < 2:
@@ -184,17 +235,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_ab.py: CUDA is not available", file=sys.stderr)
         return 2
-    entries = [f"{a}_{c}" for a in archs for c in ("prefill", "decode")] \
-        if attention else ENTRIES
+    if attention_bwd:
+        sys.path.insert(0, str(HERE))
+        import chip_smoke as cs
+        entries = [arch for arch, _, _ in cs.TRAIN_KERNEL_SHAPES]
+        flags = ["--attention-bwd"]
+    elif attention:
+        entries = [f"{a}_{c}" for a in archs for c in ("prefill", "decode")]
+        flags = ["--attention"] + [x for a in archs for x in ("--arch", a)]
+    else:
+        entries, flags = ENTRIES, []
     ab = {k: {"other": [], "this": []} for k in entries}
     for _ in range(rounds):
         for label, root in (("other", other), ("this", HERE), ("this", HERE),
                             ("other", other)):
             res = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--turn",
-                 str(root / "src")]
-                + (["--attention"] + [x for a in archs for x in ("--arch", a)]
-                   if attention else []),
+                 str(root / "src")] + flags,
                 capture_output=True, text=True,
                 timeout=900, env={**os.environ, "PYTHONPATH": ""})
             if res.returncode != 0:

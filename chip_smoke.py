@@ -42,12 +42,15 @@ just after:
   * training through ``launch.train.train``: h2o-danube-1.8b at its full
     published configuration (24 layers, 1.83B parameters, AdamW, seeded
     weights, the ``SyntheticLM`` stream, 4 x 2,048 tokens a step, 10 steps),
-    whose attention's backward is the ``flash_attention_bwd`` kernel; the
-    backward kernel first held to its plain version at the training
-    attention shape of each family, and a first step's gradients to the
-    plain attention's; then the failure drill (a crash at step 7 of 12,
-    resumed from the step-5 checkpoint, bit-identical to an uninterrupted
-    run) at the published width cut to 2 layers;
+    whose attention's backward is the ``flash_attention_bwd`` kernel (every
+    launch on its wgmma body); the backward kernel first held to its plain
+    version at the training attention shape of each family (the wgmma
+    body) and beside danube's at the inputs its CUDA-core body takes (rows
+    off 16 bytes, hd 45, fp32), and a first
+    step's gradients to the plain attention's; then the failure drill (a
+    crash at step 7 of 12, resumed from the step-5 checkpoint,
+    bit-identical to an uninterrupted run) at the published width cut to
+    2 layers;
   * one ``CobraSession.plan_step`` report of the step planner under the
     port's default hardware table (one H100 SXM), on the host.
 
@@ -142,6 +145,9 @@ ALLOC_COUNTERS = ("num_alloc_retries", "num_device_alloc", "num_device_free",
 # inputs: dq, dk, dv within this many bf16 roundings (2**-8) of their peak
 # (one rounding of the output; the rest, the fp32 sums' order)
 BWD_TOL = 2
+# the same for fp32 inputs (the CUDA-core body): the fp32 sums' order, as a
+# fraction of the peak
+BWD_TOL_FP32 = 1e-4
 # a first step's gradients, kernel against plain attention (both bf16), per
 # leaf relative L2: within twice the plain attention's own bf16-vs-fp32
 # error, and never held tighter than this
@@ -1539,6 +1545,31 @@ def _train_attention_shapes():
     return out
 
 
+# the backward's other body, the CUDA cores, beside danube's training
+# shape at B 1: bf16 rows off 16 bytes, a bf16 head dim the wgmma body is
+# not built for, and fp32 inputs: (label, B, H, KV, Tq, Tk, hd, hdv,
+# causal, window, chunk, type, rows off 16 bytes)
+def _simt_attention_shapes():
+    import torch
+    from repro_torch.models import get_arch
+    d = get_arch("h2o-danube-1.8b")
+    heads = (1, d.n_heads, d.n_kv_heads, TRAIN_T, TRAIN_T)
+    mask = (True, d.window, None)
+    return [("danube rows off 16 bytes", *heads, d.hd, d.hd, *mask,
+             torch.bfloat16, True),
+            ("danube heads at hd 45", *heads, 45, 45, *mask, torch.bfloat16,
+             False),
+            ("danube fp32", *heads, d.hd, d.hd, *mask, torch.float32, False)]
+
+
+def _off16(t):
+    """A copy of ``t`` whose buffer starts one element past its
+    allocation, so that no row is 16-byte aligned."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
 def _bwd_inputs(B, H, KV, Tq, Tk, hd, hdv, seed):
     """Seeded bf16 q, k, v and an output gradient on the card."""
     import torch
@@ -1556,30 +1587,43 @@ def _rel_peak(got, want) -> float:
 
 def phase_lm_train_kernel_parity() -> None:
     """flash_attention_bwd against flash_attention_bwd_ref on the card, in
-    fp32 over the same bf16 inputs (q, k, v, the output gradient, and the
+    fp32 over the same inputs (q, k, v, the output gradient, and the
     forward kernel's output and log-sum-exps), at the training attention
-    shape of each family: dq, dk and dv each within BWD_TOL bf16 roundings
-    of its peak. A witness reads the rounding scale: autograd through the
-    plain version with bf16 inputs, against the same fp32 gradients. A
-    second call must give the same bits."""
+    shape of each family (bf16, the wgmma body) and at danube's beside
+    each input the CUDA-core body takes: dq, dk and dv each within BWD_TOL
+    bf16 roundings of its peak (BWD_TOL_FP32 of it in fp32), on the body
+    ``bwd_body`` names. A witness reads the rounding scale: autograd
+    through the plain version with the same inputs, against the same fp32
+    gradients. A second call must give the same bits."""
     import importlib
 
     import torch
     from repro_torch.kernels import ref
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     cases = []
-    for i, (label, B, H, KV, Tq, Tk, hd, hdv, causal, window, chunk) in \
-            enumerate(_train_attention_shapes()):
-        q, k, v, do = _bwd_inputs(B, H, KV, Tq, Tk, hd, hdv, seed=100 + i)
+    shapes = [(*c, torch.bfloat16, False) for c in _train_attention_shapes()]
+    for i, (label, B, H, KV, Tq, Tk, hd, hdv, causal, window, chunk, dtype,
+            offset) in enumerate(shapes + _simt_attention_shapes()):
+        q, k, v, do = (x.to(dtype) for x in _bwd_inputs(
+            B, H, KV, Tq, Tk, hd, hdv, seed=100 + i))
         scale = 1.0 / math.sqrt(hd)
         kw = dict(causal=causal, window=window, chunk=chunk, scale=scale)
         o, lse = fa._forward(q, k, v, causal, window, chunk, scale,
                              with_lse=True)
+        if offset:
+            q, k, v, o, do = (_off16(x) for x in (q, k, v, o, do))
+        expect = "simt" if offset or dtype == torch.float32 \
+            or (hd, hdv) not in fa._WG_HEAD_DIMS else "wgmma"
+        tol = BWD_TOL * 2.0 ** -8 if dtype == torch.bfloat16 else BWD_TOL_FP32
+        before = dict(fa.flash_attention_bwd.launches_by_body)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        body = [b for b, n in fa.flash_attention_bwd.launches_by_body.items()
+                if n != before[b]]
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                            o.float(), lse, do.float(), **kw)
-        # the witness: autograd through the plain version, bf16 in and out
+        # the witness: autograd through the plain version, the inputs' type
+        # in and out
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         ref.flash_attention_ref(*leaves, **kw).backward(do)
         sync()
@@ -1589,21 +1633,25 @@ def phase_lm_train_kernel_parity() -> None:
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         shape = [B, H, KV, Tq, Tk, hd, hdv]
         cases.append({"case": label, "shape": shape, "causal": causal,
-                      "window": window, "chunk": chunk,
+                      "window": window, "chunk": chunk, "type": str(dtype),
+                      "rows_off_16_bytes": offset, "body": body,
                       "rel_err_dq_dk_dv": errs,
                       "witness_rel_err_dq_dk_dv": witness,
                       "bit_identical_second_call": same})
         check(finite, f"flash_attention_bwd {label}: non-finite gradient")
-        check(all(e <= BWD_TOL * 2.0 ** -8 for e in errs),
+        check(all(e <= tol for e in errs),
               f"flash_attention_bwd {label} {shape}: relative errors {errs} "
-              f"past {BWD_TOL} bf16 roundings ({BWD_TOL * 2.0 ** -8:.3g}); "
-              f"the plain version in bf16 reads {witness}")
+              f"past {tol:.3g} of the peak; the plain version in "
+              f"{dtype} reads {witness}")
         check(same, f"flash_attention_bwd {label}: a second call differs")
+        check(body == [expect], f"flash_attention_bwd {label}: ran {body}, "
+              f"not the {expect} body")
         del q, k, v, do, o, lse, got, again, want, leaves
         torch.cuda.empty_cache()
     emit({"phase": "lm_train_kernel_parity", "cases": len(cases),
           "tolerance": f"max |kernel - plain fp32| <= {BWD_TOL} x 2**-8 x "
-                       f"peak, for each of dq, dk, dv",
+                       f"peak (bf16), {BWD_TOL_FP32} x peak (fp32), for "
+                       f"each of dq, dk, dv",
           "results": cases})
 
 
@@ -1777,6 +1825,7 @@ def phase_train(arch_name: str):
         sync()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
+        by_body = dict(ops.flash_attention_bwd.launches_by_body)
     finally:
         train_mod.make_train_step = make
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1806,12 +1855,16 @@ def phase_train(arch_name: str):
             "allocator_by_step": allocs,
             "traced_step": {"index": TRAIN_TRACE_STEP, **traced},
             "peak_memory_gb": peak_gb, "losses": losses,
-            "launches": launches, "launches_per_step": per_step}
+            "launches": launches, "launches_per_step": per_step,
+            "backward_launches_by_body": by_body}
     check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
     check(per_step["flash_attention"] == arch.n_layers
           and per_step["flash_attention_bwd"] == arch.n_layers,
           f"train: {per_step} launches a step, not one forward and one "
           f"backward a layer ({arch.n_layers})")
+    check(by_body["wgmma"] == launches["flash_attention_bwd"],
+          f"train: the backward ran {by_body}, not the wgmma body every "
+          f"time")
     check(min(losses[2:]) < losses[0] - 0.05,
           f"train: the loss did not fall on the structured stream: {losses}")
 
@@ -1827,6 +1880,7 @@ def phase_train(arch_name: str):
     ops.reset_launch_counts()
     loss_k, g_kernel = _first_step_grads(small, params, batch)
     grad_launches = ops.launch_counts()
+    grad_bodies = dict(ops.flash_attention_bwd.launches_by_body)
     attention = ops.attention
     ops.attention = ref.flash_attention_ref
     try:
@@ -1844,6 +1898,7 @@ def phase_train(arch_name: str):
         "loss_kernel": loss_k, "loss_plain": loss_p, "loss_plain_fp32": loss_32,
         "launches": {k: grad_launches[k] for k in ("flash_attention",
                                                    "flash_attention_bwd")},
+        "backward_launches_by_body": grad_bodies,
         "kernel_vs_plain_rel_l2_max": max(err.values()),
         "plain_bf16_vs_fp32_rel_l2_max": max(witness.values()),
         "kernel_vs_plain_rel_l2": err,
@@ -1857,8 +1912,10 @@ def phase_train(arch_name: str):
                                              loss_k)
     finally:
         emit(line)
-    check(grad_launches["flash_attention_bwd"] == 2,
-          f"grad check: {grad_launches} (one backward a layer)")
+    check(grad_launches["flash_attention_bwd"] == 2
+          and grad_bodies["wgmma"] == 2,
+          f"grad check: {grad_launches}, {grad_bodies} (one backward a "
+          f"layer, the wgmma body)")
     check(not bad, f"train: gradients off the plain attention's: {bad}")
     del params, g_kernel, batch
     torch.cuda.empty_cache()
@@ -1960,12 +2017,21 @@ def phase_train_resume(arch_name: str, root: Path) -> None:
     check(not tmp.exists(), f"train_resume: {tmp} left behind")
 
 
-def train_kernel_entry(timer, launches: int) -> dict:
-    """flash_attention_bwd at danube's training shape (batch 4 x 2,048,
-    H 32 / KV 8, hd 80, window 4,096), seeded bf16 inputs and the forward
-    kernel's output and log-sum-exps: the kernel against its plain version,
-    the backward of autograd through the plain attention, and bf16 SDPA's
-    backward (its forward and backward less its forward)."""
+# flash_attention_bwd's timed shapes: danube's training call, and the
+# widest heads' (hd 128, hd 160) at B 1 x TRAIN_T: (arch, batch, what)
+TRAIN_KERNEL_SHAPES = (("h2o-danube-1.8b", TRAIN_BATCH, "train"),
+                       ("qwen2-vl-72b", 1, "timed only"),
+                       ("stablelm-12b", 1, "timed only"))
+
+
+def train_kernel_entries(timer, launches: int) -> list:
+    """flash_attention_bwd at each of TRAIN_KERNEL_SHAPES (causal, the
+    arch's heads, head dim and window; danube's is its training call, 4 x
+    2,048, H 32 / KV 8, hd 80, window 4,096), seeded bf16 inputs and the
+    forward kernel's output and log-sum-exps: the kernel against its plain
+    version, the backward of autograd through the plain attention, and bf16
+    SDPA's backward (its forward and backward less its forward), with the
+    body that ran. ``launches``: the kernel's count on the training path."""
     import importlib
 
     import torch
@@ -1973,73 +2039,86 @@ def train_kernel_entry(timer, launches: int) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.models import get_arch
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    a = get_arch("h2o-danube-1.8b")
-    B, H, KV, T, hd = TRAIN_BATCH, a.n_heads, a.n_kv_heads, TRAIN_T, a.hd
-    q, k, v, do = _bwd_inputs(B, H, KV, T, T, hd, hd, seed=7)
-    scale = 1.0 / math.sqrt(hd)
-    kw = dict(causal=True, window=a.window, chunk=None, scale=scale)
-    o, lse = fa._forward(q, k, v, True, a.window, None, scale, with_lse=True)
-    fn = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
-    plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
-        q, k, v, o, lse, do, **kw)
-    got = fn()
-    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                       o.float(), lse, do.float(), **kw)
-    err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
-    del got, want
-    lo, hi = _visible_keys(T, T, True, a.window, None)
-    pairs = B * H * int((hi - lo + 1).clip(min=0).sum())
-    # the five tile products (S, dP, dV, dK, dQ): 2.5x the forward's two
-    flops = 2 * pairs * (3 * hd + 2 * hd)
-    nbytes = (5 * B * H * T * hd + 4 * B * KV * T * hd) * q.element_size() \
-        + B * H * T * 4
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_OPS_PER_S)
+    entries = []
+    for arch_name, B, call in TRAIN_KERNEL_SHAPES:
+        a = get_arch(arch_name)
+        H, KV, T, hd = a.n_heads, a.n_kv_heads, TRAIN_T, a.hd
+        q, k, v, do = _bwd_inputs(B, H, KV, T, T, hd, hd, seed=7)
+        scale = 1.0 / math.sqrt(hd)
+        kw = dict(causal=True, window=a.window, chunk=None, scale=scale)
+        o, lse = fa._forward(q, k, v, True, a.window, None, scale,
+                             with_lse=True)
+        fn = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+        plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+            q, k, v, o, lse, do, **kw)
+        before = dict(fa.flash_attention_bwd.launches_by_body)
+        got = fn()
+        body = [b for b, n in fa.flash_attention_bwd.launches_by_body.items()
+                if n != before[b]]
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           o.float(), lse, do.float(), **kw)
+        err = max(float((g.float() - w).abs().max())
+                  for g, w in zip(got, want))
+        del got, want
+        lo, hi = _visible_keys(T, T, True, a.window, None)
+        pairs = B * H * int((hi - lo + 1).clip(min=0).sum())
+        # the five tile products (S, dP, dV, dK, dQ): 2.5x the forward's two
+        flops = 2 * pairs * (3 * hd + 2 * hd)
+        nbytes = (5 * B * H * T * hd + 4 * B * KV * T * hd) \
+            * q.element_size() + B * H * T * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_OPS_PER_S)
 
-    # autograd through the plain attention: forward and backward, less the
-    # forward
-    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        # autograd through the plain attention: forward and backward, less
+        # the forward
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
 
-    def plain_fb():
-        out = ref.flash_attention_ref(*leaves, **kw)
-        torch.autograd.grad(out, leaves, do)
-    plain_fwd = lambda: ref.flash_attention_ref(*leaves, **kw)   # noqa: E731
-    # bf16 SDPA with its GQA broadcast outside the timed call (window 4,096
-    # >= 2,048: the causal mask alone)
-    sq, sk, sv = (x.detach().clone().requires_grad_() for x in (
-        q, k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)))
+        def plain_fb():
+            out = ref.flash_attention_ref(*leaves, **kw)
+            torch.autograd.grad(out, leaves, do)
+        plain_fwd = lambda: ref.flash_attention_ref(*leaves, **kw)  # noqa: E731
+        # bf16 SDPA with its GQA broadcast outside the timed call (danube's
+        # window 4,096 >= 2,048: the causal mask alone)
+        sq, sk, sv = (x.detach().clone().requires_grad_() for x in (
+            q, k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)))
 
-    def sdpa_fb():
-        out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
-                                             scale=scale)
-        torch.autograd.grad(out, (sq, sk, sv), do)
-    sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        sq, sk, sv, is_causal=True, scale=scale)
-    autograd_plain_ms = timer.ms(plain_fb, reps=5) - timer.ms(plain_fwd, reps=5)
-    entry = {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/models/layers.py:163 (no TPU kernel: the "
-                    "reference differentiates sdpa through XLA)",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": timer.ms(fn, reps=10), "call_ms": timer.ms(fn, hold=False,
-                                                          reps=10),
-        "plain_ms": timer.ms(plain, reps=5),
-        "autograd_plain_ms": autograd_plain_ms,
-        "bound_ms": bound * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= flops / BF16_TENSOR_OPS_PER_S else "operations",
-        "bound_fp32_ms": max(nbytes / HBM_BYTES_PER_S,
-                             flops / FP32_OPS_PER_S) * 1e3,
-        "library_ms": timer.ms(sdpa_fb, reps=10) - timer.ms(sdpa_fwd, reps=10),
-        "shape": {"arch": "h2o-danube-1.8b", "call": "train", "B": B, "H": H,
-                  "KV": KV, "Tq": T, "Tk": T, "hd": hd, "hdv": hd,
-                  "causal": True, "window": a.window, "chunk": None,
-                  "types": ["torch.bfloat16"] * 2, "visible_pairs": pairs,
-                  "flops": flops, "bytes": nbytes}}
-    del q, k, v, do, o, lse, leaves, sq, sk, sv
-    torch.cuda.empty_cache()
-    return entry
+        def sdpa_fb():
+            out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+                                                 scale=scale)
+            torch.autograd.grad(out, (sq, sk, sv), do)
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            sq, sk, sv, is_causal=True, scale=scale)
+        autograd_plain_ms = timer.ms(plain_fb, reps=5) \
+            - timer.ms(plain_fwd, reps=5)
+        entries.append({
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:163 (no TPU kernel: the "
+                        "reference differentiates sdpa through XLA)",
+            "launches": launches,
+            "max_abs_err": err,
+            "body": body,
+            "ms": timer.ms(fn, reps=10),
+            "call_ms": timer.ms(fn, hold=False, reps=10),
+            "kernel_ms": _kernel_ms(fn),
+            "plain_ms": timer.ms(plain, reps=5),
+            "autograd_plain_ms": autograd_plain_ms,
+            "bound_ms": bound * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= flops / BF16_TENSOR_OPS_PER_S else "operations",
+            "bound_fp32_ms": max(nbytes / HBM_BYTES_PER_S,
+                                 flops / FP32_OPS_PER_S) * 1e3,
+            "library_ms": timer.ms(sdpa_fb, reps=10)
+            - timer.ms(sdpa_fwd, reps=10),
+            "shape": {"arch": arch_name, "call": call, "B": B, "H": H,
+                      "KV": KV, "Tq": T, "Tk": T, "hd": hd, "hdv": hd,
+                      "causal": True, "window": a.window, "chunk": None,
+                      "types": ["torch.bfloat16"] * 2, "visible_pairs": pairs,
+                      "flops": flops, "bytes": nbytes}})
+        check(body == ["wgmma"], f"flash_attention_bwd at {arch_name}: ran "
+              f"{body}, not the wgmma body")
+        del q, k, v, do, o, lse, leaves, sq, sk, sv
+        torch.cuda.empty_cache()
+    return entries
 
 
 def phase_planner() -> None:
@@ -2636,8 +2715,8 @@ def main() -> int:
     phase_planner()
     timer = _Timer()
     entries += lm_kernel_entries(timer, attn, scan_launches, scan_shapes)
-    entries.append(train_kernel_entry(timer,
-                                      train_launches["flash_attention_bwd"]))
+    entries += train_kernel_entries(timer,
+                                    train_launches["flash_attention_bwd"])
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": entries})
     print(smi, flush=True)

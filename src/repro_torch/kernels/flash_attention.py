@@ -23,8 +23,10 @@ with grad enabled and an input that requires it (training), the call goes
 through an ``autograd.Function``: its forward is the same kernel, which
 then also writes each row's log-sum-exp, and its backward is
 :func:`flash_attention_bwd`, the kernel of ``csrc/flash_attention_bwd.cu``
-(deterministic: two calls give the same bits; bf16 on the tensor cores
-up to hd 128), counted in ``flash_attention_bwd.launches``. The backward
+(deterministic: two calls give the same bits; bf16 on the tensor cores,
+by wgmma at the training head dims, :func:`bwd_body` picks the body),
+counted in ``flash_attention_bwd.launches`` and, by body, in
+``flash_attention_bwd.launches_by_body``. The backward
 takes q, k and v of one type, bf16 or fp32 (the training path's; a bf16 q
 over an fp32 cache is serving's and raises under grad).
 
@@ -40,13 +42,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import build, ref
 
-__all__ = ["flash_attention", "flash_attention_bwd"]
+__all__ = ["flash_attention", "flash_attention_bwd", "bwd_body"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,7 +70,7 @@ _BWD_SIGNATURES = {
         _STRIDES, _STRIDES, _STRIDES, _STRIDES,  # q, k, v, o strides
         _STRIDES, _STRIDES, _STRIDES, _STRIDES,  # dout, dq, dk, dv strides
         _I, _I, _I, ctypes.c_float,              # causal, window, chunk, scale
-        _I, _I, _P),                             # dtype, vec, stream
+        _I, _I, _I, _I, _P),                     # dtype, body, width, vec, stream
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -78,6 +80,12 @@ _KEYS = {torch.float32: 32, torch.bfloat16: 64}
 _MAX_HD = 160        # mma depth KS <= 10 slices of 16; simt HC <= 5 of 32
 _NARROW_V_HD = (81, 96)   # the mma depth (KS 6) built for hdv < hd
 _MIN_TILES_PER_SPLIT = 4
+# the backward's bodies (their codes in csrc/flash_attention_bwd.cu), the
+# (hd, hdv) pairs its wgmma body is built for (the training head dims of
+# the registered architectures), and the widths the CUDA-core body pads to
+BWD_BODIES = {"simt": 0, "wgmma": 1}
+_WG_HEAD_DIMS = ((64, 64), (80, 80), (96, 64), (128, 128), (160, 160))
+_SIMT_WIDTHS = (64, 128, 160)
 
 
 def _lib():
@@ -231,6 +239,26 @@ def _forward(q, k, v, causal, window, chunk, scale, with_lse: bool):
 flash_attention.launches = 0
 
 
+def bwd_body(hd: int, hdv: int, dtype: torch.dtype,
+             aligned: bool) -> Tuple[str, int]:
+    """The backward kernel's body for q.k head dim ``hd``, v head dim
+    ``hdv``, the inputs' type and whether q's, k's, v's and dout's rows are
+    16-byte aligned (``build.rows16``, and o's), with the head dim it pads
+    hd to:
+    ("wgmma", hd) for bf16 at a pair of ``_WG_HEAD_DIMS`` with aligned rows
+    (nothing padded: wgmma's depth is 16 and its width any multiple of 8);
+    ("simt", the next of ``_SIMT_WIDTHS``) for fp32 and for other bf16
+    (rows off 16 bytes, other head dims)."""
+    if not 0 < hdv <= hd <= _MAX_HD:
+        raise ValueError(f"flash_attention_bwd: head dims ({hd}, {hdv}) "
+                         f"outside 0 < hdv <= hd <= {_MAX_HD}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash_attention_bwd: unsupported type {dtype}")
+    if dtype == torch.bfloat16 and aligned and (hd, hdv) in _WG_HEAD_DIMS:
+        return "wgmma", hd
+    return "simt", next(w for w in _SIMT_WIDTHS if w >= hd)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
@@ -239,8 +267,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of :func:`flash_attention` at q, k, v,
     from its output ``o``, its rows' log-sum-exps ``lse`` (B, H, Tq) fp32
     and the output's gradient ``dout``, in the inputs' types. A CUDA
-    tensor launches the kernel (and bumps ``flash_attention_bwd.launches``),
-    a CPU tensor takes :func:`.ref.flash_attention_bwd_ref`."""
+    tensor launches the kernel (and bumps ``flash_attention_bwd.launches``
+    and its body's count in ``flash_attention_bwd.launches_by_body``; the
+    body from :func:`bwd_body`), a CPU tensor takes
+    :func:`.ref.flash_attention_bwd_ref`."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
                                            causal=causal, window=window,
@@ -265,18 +295,33 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse must be contiguous "
                          f"float32 {(B, H, Tq)}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    # (B, T, heads, dim) memory seen as (B, heads, T, dim): the projections'
+    aligned = all(build.rows16(t) for t in (q, k, v, o, dout))
+    body, width = bwd_body(hd, hdv, q.dtype, aligned)
+    return launch_bwd(_bwd_lib(), q, k, v, o, lse, dout, causal, window,
+                      chunk, scale, body, width)
+
+
+def launch_bwd(lib, q, k, v, o, lse, dout, causal, window, chunk, scale,
+               body: str, width: int):
+    """One launch of the backward through ``lib`` (a build of
+    ``csrc/flash_attention_bwd.cu``) on checked inputs, with the given body
+    and padded head dim: (dq, dk, dv), each a (B, heads, T, dim) view of
+    (B, T, heads, dim) memory, the projections' layout. A launch bumps
+    ``flash_attention_bwd.launches`` and its body's count in
+    ``flash_attention_bwd.launches_by_body``."""
+    B, H, Tq, hd = q.shape
+    KV, Tk, hdv = k.shape[1], k.shape[2], v.shape[3]
     dq = torch.empty((B, Tq, H, hd), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     dk = torch.empty((B, Tk, KV, hd), dtype=k.dtype,
                      device=q.device).transpose(1, 2)
     dv = torch.empty((B, Tk, KV, hdv), dtype=v.dtype,
                      device=q.device).transpose(1, 2)
-    if B == 0:
+    if B == 0 or H == 0 or (Tq == 0 and Tk == 0):   # the entry launches nothing
         return dq, dk, dv
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _bwd_lib().cobra_flash_attention_bwd(
+        err = lib.cobra_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -284,12 +329,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _strides(q), _strides(k), _strides(v), _strides(o),
             _strides(dout), _strides(dq), _strides(dk), _strides(dv),
             int(causal), window or 0, chunk or 0, float(scale),
-            _DTYPES[q.dtype],
-            int(all(build.rows16(t) for t in (q, k, v, dout))),
+            _DTYPES[q.dtype], BWD_BODIES[body], width,
+            int(all(build.rows16(t) for t in (q, k, v, o, dout))),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_body[body] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_body = dict.fromkeys(BWD_BODIES, 0)

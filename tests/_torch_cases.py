@@ -105,7 +105,7 @@ ATTN_KERNEL_TOL = {"float32": {"rtol": 2e-5, "atol": 2e-5},
 # (B, H, KV, Tq, Tk, hd, hdv, dtype, causal, window, chunk): every mask the
 # forward serves (causal, sliding window, chunk, none; Tq != Tk both ways
 # for cross attention), GQA and H = KV, hd 16..160 and MLA's hdv < hd,
-# ragged tiles, both types
+# ragged tiles, both types, and each of the kernel's two bodies
 ATTN_BWD_CASES = [
     (2, 8, 2, 150, 150, 80, 80, "bfloat16", True, 64, None),     # danube: window
     (1, 4, 4, 130, 130, 64, 64, "bfloat16", True, None, None),   # zamba2: H = KV
@@ -120,6 +120,19 @@ ATTN_BWD_CASES = [
     (1, 4, 2, 70, 70, 45, 45, "bfloat16", True, 16, None),       # hd off 8: scalar loads
     (1, 4, 2, 77, 77, 32, 32, "float32", True, None, None),
     (2, 4, 2, 50, 90, 45, 45, "float32", True, 16, None),        # tail queries
+    # the wgmma body's edges (aligned rows; the offset views of the same
+    # cases take the CUDA-core body): hd 80 over T off the 64 / 128 tiles,
+    # GQA groups of 1, 4 and 8, a chunk across tiles, causal Tq != Tk both
+    # ways, and many key tiles into one query tile
+    (1, 8, 2, 77, 77, 80, 80, "bfloat16", True, None, None),
+    (1, 8, 2, 150, 150, 80, 80, "bfloat16", True, None, None),
+    (1, 8, 8, 150, 150, 80, 80, "bfloat16", True, None, None),   # group 1
+    (1, 16, 4, 150, 150, 80, 80, "bfloat16", True, None, None),  # group 4
+    (1, 64, 8, 150, 150, 128, 128, "bfloat16", True, None, None),  # qwen2-vl
+    (1, 8, 2, 300, 300, 80, 80, "bfloat16", True, None, 100),    # chunk
+    (1, 8, 2, 300, 170, 80, 80, "bfloat16", True, None, None),   # Tq > Tk
+    (1, 8, 2, 170, 300, 80, 80, "bfloat16", True, None, None),   # Tq < Tk
+    (1, 8, 2, 4096, 4096, 80, 80, "bfloat16", True, None, None),  # T 4,096
 ]
 # the kernel's gradient against the plain version's, as a fraction of the
 # gradient's peak: bf16 outputs two roundings (2 * 2**-8: one of the

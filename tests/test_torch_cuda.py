@@ -49,7 +49,10 @@ runs where only torch is installed::
     plain version on the same inputs, over every mask the forward serves,
     GQA and H = KV, hd 16..160, MLA's hdv < hd, ragged tiles, both types,
     and rows off 16 bytes: dq, dk, dv within two bf16 roundings of their
-    peak (1e-4 of it in fp32), a second call bit-identical; the forward's
+    peak (1e-4 of it in fp32), a second call bit-identical, the body
+    ``bwd_body`` picks launched; the wgmma body's edges (hd 80 over ragged
+    tiles, GQA groups of 1, 4 and 8, a chunk across tiles, causal Tq != Tk
+    both ways, T 4,096) and its per-body launch counts; the forward's
     row log-sum-exps (single pass, split-key combine, CUDA-core body);
     training's backward through the wrappers: attention's gradients from
     the kernel (one launch each way), the scan raising under grad;
@@ -580,22 +583,55 @@ def test_flash_attention_backward_matches_plain(cuda, B, H, KV, Tq, Tk, hd,
                                                 hdv, dt, causal, window,
                                                 chunk, offset):
     # offset: every input a view one element into its buffer, its rows off
-    # 16 bytes (the tensor-core body's element-by-element loads)
+    # 16 bytes (bf16 then takes the CUDA-core body, not the wgmma body)
     q, k, v, do = _bwd_inputs(cuda, B, H, KV, Tq, Tk, hd, hdv, dt,
                               offset=offset)
     kw = dict(causal=causal, window=window, chunk=chunk)
     o, lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                      return_lse=True, **kw)
     o = o.to(q.dtype)
+    before = dict(fa.flash_attention_bwd.launches_by_body)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                        o.float(), lse, do.float(), **kw)
     torch.cuda.synchronize()
     _assert_grads_close(got, want, (q, k, v), dt)
+    # the body bwd_body picks for these inputs ran, once
+    body, _ = fa.bwd_body(hd, hdv, q.dtype, not offset and all(
+        build.rows16(t) for t in (q, k, v, o, do)))
+    assert {b: n - before[b] for b, n in
+            fa.flash_attention_bwd.launches_by_body.items() if n != before[b]} \
+        == {body: 1}
     # deterministic: a second call gives the same bits
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+def test_flash_attention_backward_counts_launches_by_body(cuda):
+    # danube's heads and head dim: aligned rows take the wgmma body, rows
+    # off 16 bytes and fp32 the CUDA cores; each launch counts once in the
+    # total and once under its body
+    B, H, KV, T, hd = 1, 32, 8, 150, 80
+    kw = dict(causal=True, window=4096)
+    ops.reset_launch_counts()
+    for dt, offset, body in (("bfloat16", False, "wgmma"),
+                             ("bfloat16", True, "simt"),
+                             ("float32", False, "simt")):
+        q, k, v, do = _bwd_inputs(cuda, B, H, KV, T, T, hd, hd, dt,
+                                  offset=offset)
+        o, lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         return_lse=True, **kw)
+        before = dict(fa.flash_attention_bwd.launches_by_body)
+        fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do, **kw)
+        torch.cuda.synchronize()
+        after = fa.flash_attention_bwd.launches_by_body
+        assert {b: after[b] - before[b] for b in after} \
+            == {b: int(b == body) for b in after}, (dt, offset)
+    assert ops.launch_counts()["flash_attention_bwd"] == 3
+    assert fa.flash_attention_bwd.launches_by_body == {"simt": 2, "wgmma": 1}
+    ops.reset_launch_counts()
+    assert set(fa.flash_attention_bwd.launches_by_body.values()) == {0}
 
 
 @pytest.mark.parametrize("Tq,Tk,hd,dt,causal,window", [
