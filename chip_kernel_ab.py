@@ -118,7 +118,7 @@ def attention_turn(src: str, archs) -> dict:
         cs.attention_close(fn(), plain(), f"{src}: {name}")
         out[name] = {"ms": timer.ms(fn), "clean_ms": timer.ms(fn, clean=True),
                      "call_ms": timer.ms(fn, hold=False),
-                     "kernel_ms": cs._kernel_ms(fn)}
+                     **cs._kernel_ms(fn)}
     return out
 
 
@@ -153,7 +153,7 @@ def attention_bwd_turn(src: str) -> dict:
         out[arch_name] = {"ms": timer.ms(fn, reps=20),
                           "clean_ms": timer.ms(fn, clean=True, reps=20),
                           "call_ms": timer.ms(fn, hold=False, reps=20),
-                          "kernel_ms": cs._kernel_ms(fn), "rel_err": errs}
+                          **cs._kernel_ms(fn), "rel_err": errs}
         del q, k, v, do, o, lse, want
     return out
 
@@ -207,7 +207,7 @@ def turn(src: str) -> dict:
         cs.check(torch.equal(got, want), f"{src}: {name} differs from plain")
         out[name] = {"ms": timer.ms(fn), "clean_ms": timer.ms(fn, clean=True),
                      "call_ms": timer.ms(fn, hold=False),
-                     "kernel_ms": cs._kernel_ms(fn)}
+                     **cs._kernel_ms(fn)}
     return out
 
 

@@ -51,6 +51,14 @@ just after:
     crash at step 7 of 12, resumed from the step-5 checkpoint,
     bit-identical to an uninterrupted run) at the published width cut to
     2 layers;
+  * training rwkv6-3b through ``launch.train.train`` at its full
+    published configuration (32 layers, 3.17B parameters, 4 x 2,048
+    tokens a step in four 1-row microbatches, 6 steps), whose scan's
+    backward is the ``rwkv6_scan_bwd`` kernel, held first to its plain
+    version (training's shape, a ragged T, one chunk, a state with a
+    final-state cotangent, the decay floor, fp32, rows off 16 bytes, K 16
+    to 64 and V 32 to 256), and
+    a first step's gradients to the plain scan's at 2 layers;
   * one ``CobraSession.plan_step`` report of the step planner under the
     port's default hardware table (one H100 SXM), on the host.
 
@@ -136,6 +144,30 @@ TRAIN_T = 2048
 TRAIN_STEPS = 10
 TRAIN_TRACE_STEP = 5
 TRAIN_CROSS_TK = 2560       # cross attention's keys (Tq != Tk) in the parity
+# training rwkv6-3b at its full published configuration (32 layers, d
+# 2,560, 40 heads of 64, d_ff 8,960, vocab 65,536; 3.17 B parameters),
+# TRAIN_RWKV_BATCH x 2,048 tokens a step in TRAIN_RWKV_MICROBATCH
+# microbatches, the peak under about 75 GB of the card's 85.0 GB.
+# tools/train_peak_memory.py on an H100 80GB HBM3 (700 W): at once, 1 row
+# peaked at 49.3 GB, 2 at 67.0 GB (0.66-0.79 s a step), 3 ran out of
+# memory; 4 rows in two 2-row microbatches ran out too; in 1-row
+# microbatches (the fp32 gradient sums add 12.7 GB) 2 and 4 rows peaked at
+# 70.8 GB, 4 at 1.13 s a step: more tokens a second than 2 rows at once,
+# the optimizer's step shared by more rows. 4 rows: danube's 8,192 tokens
+# a step. 6 steps: the traced one and the loss check
+TRAIN_RWKV_ARCH = "rwkv6-3b"
+TRAIN_RWKV_BATCH = 4
+TRAIN_RWKV_MICROBATCH = 4
+TRAIN_RWKV_STEPS = 6
+# each trained family's kernels, by ``ArchConfig.family``, one launch a
+# layer a step each: (forward, backward, the ops entry the layer calls, its
+# plain version in ref, the body every backward launch must run: a key of
+# the backward's ``launches_by_body``, or None where it has one body)
+TRAIN_KERNELS = {
+    "dense": ("flash_attention", "flash_attention_bwd", "attention",
+              "flash_attention_ref", "wgmma"),
+    "ssm": ("rwkv6_scan", "rwkv6_scan_bwd", "rwkv_scan", "rwkv6_scan_ref",
+            None)}
 # the caching allocator's counters read around each training step: a
 # cudaMalloc (num_device_alloc) or a retry after freeing the cache
 # (num_alloc_retries) synchronizes, and shows in that step's wall
@@ -1594,7 +1626,8 @@ def phase_lm_train_kernel_parity() -> None:
     bf16 roundings of its peak (BWD_TOL_FP32 of it in fp32), on the body
     ``bwd_body`` names. A witness reads the rounding scale: autograd
     through the plain version with the same inputs, against the same fp32
-    gradients. A second call must give the same bits."""
+    gradients. A second call must give the same bits. Then the scan's
+    backward the same way (``_scan_bwd_parity``)."""
     import importlib
 
     import torch
@@ -1648,11 +1681,126 @@ def phase_lm_train_kernel_parity() -> None:
               f"not the {expect} body")
         del q, k, v, do, o, lse, got, again, want, leaves
         torch.cuda.empty_cache()
-    emit({"phase": "lm_train_kernel_parity", "cases": len(cases),
+    scan_cases = _scan_bwd_parity()
+    emit({"phase": "lm_train_kernel_parity",
+          "cases": len(cases) + len(scan_cases),
           "tolerance": f"max |kernel - plain fp32| <= {BWD_TOL} x 2**-8 x "
                        f"peak (bf16), {BWD_TOL_FP32} x peak (fp32), for "
-                       f"each of dq, dk, dv",
-          "results": cases})
+                       f"each of dq, dk, dv; for rwkv6_scan_bwd the same "
+                       f"for dr, dk, dv (r's type) and {BWD_TOL_FP32} x "
+                       f"peak for dw, du, dstate (fp32)",
+          "results": cases, "scan_results": scan_cases})
+
+
+# rwkv6_scan_bwd against rwkv6_scan_bwd_ref: (label, B, H, T, K, V, type,
+# a given state and final-state cotangent, decay, rows off 16 bytes).
+# decay None: the model's range, w_log = -exp(clamp(N(-1, 1.5), -12, 2));
+# "boundary": that, with the clamp's floor -e**2 on tokens 32..95 (across
+# the first chunk boundary); "floor": -e**2 everywhere
+SCAN_BWD_CASES = [
+    ("rwkv6-3b train", 1, 40, TRAIN_T, 64, 64, "bfloat16", False, None, False),
+    ("ragged T", 1, 40, 2000, 64, 64, "bfloat16", False, None, False),
+    ("one chunk", 1, 40, 64, 64, 64, "bfloat16", False, None, False),
+    ("short, one chunk", 2, 40, 37, 64, 64, "bfloat16", True, None, False),
+    ("state and cotangent", 2, 40, 300, 64, 64, "bfloat16", True, None, False),
+    ("floor across a boundary", 1, 40, 300, 64, 64, "bfloat16", True,
+     "boundary", False),
+    ("floor everywhere", 1, 40, 300, 64, 64, "float32", True, "floor", False),
+    ("fp32", 1, 40, TRAIN_T, 64, 64, "float32", False, None, False),
+    ("rows off 16 bytes", 1, 40, 2000, 64, 64, "bfloat16", True, None, True),
+    ("K 16, V 32", 2, 3, 200, 16, 32, "float32", True, None, False),
+    ("K 32, V 96", 1, 3, 200, 32, 96, "bfloat16", True, None, False),
+    # the widest values: 3 and 4 warps a state row in the row pass (192
+    # and 256 threads), its shared memory near the card's 227 KB at V 256
+    ("K 64, V 160", 1, 3, 200, 64, 160, "bfloat16", True, None, False),
+    ("K 64, V 256", 1, 3, 200, 64, 256, "bfloat16", True, None, False),
+    ("K 64, V 256, fp32", 1, 2, 130, 64, 256, "float32", True, "boundary",
+     False),
+    ("K 16, V 256", 2, 3, 200, 16, 256, "float32", True, None, False),
+]
+
+
+def _scan_inputs(B, H, T, K, V, dtype, with_state, decay, seed):
+    """Seeded r, k, v, w_log, u, state (or None), dy, ds_out (or None) on
+    the card; r/k/v/dy in ``dtype``, the rest fp32."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n = lambda *s: torch.randn(s, generator=g, device=DEVICE)  # noqa: E731
+    r, k, v, dy = n(B, H, T, K), n(B, H, T, K), n(B, H, T, V), n(B, H, T, V)
+    w = -torch.exp(torch.clamp(n(B, H, T, K) * 1.5 - 1.0, -12.0, 2.0))
+    if decay == "boundary":
+        w[:, :, 32:96] = -math.exp(2.0)
+    elif decay == "floor":
+        w.fill_(-math.exp(2.0))
+    u = n(H, K) * 0.3
+    state = n(B, H, K, V) if with_state else None
+    ds_out = n(B, H, K, V) if with_state else None
+    typ = getattr(torch, dtype)
+    return (r.to(typ), k.to(typ), v.to(typ), w, u, state, dy.to(typ), ds_out)
+
+
+def _scan_bwd_parity() -> list:
+    """rwkv6_scan_bwd against rwkv6_scan_bwd_ref on the card, in fp32 over
+    the same inputs (with the forward kernel's chunk states and decays), at
+    each of SCAN_BWD_CASES: dr, dk, dv within BWD_TOL bf16 roundings of
+    their peak (BWD_TOL_FP32 of it for fp32 inputs), dw, du and dstate
+    within BWD_TOL_FP32 of theirs. A witness reads the rounding scale:
+    autograd through rwkv6_scan_ref with the inputs' types, against the same
+    fp32 gradients. A second call must give the same bits."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels import ref
+    rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    names = ("dr", "dk", "dv", "dw", "du", "dstate")
+    cases = []
+    for i, (label, B, H, T, K, V, dtype, with_state, decay,
+            offset) in enumerate(SCAN_BWD_CASES):
+        r, k, v, w, u, state, dy, ds_out = _scan_inputs(
+            B, H, T, K, V, dtype, with_state, decay, seed=300 + i)
+        _, _, L, D = rs._forward(r, k, v, w, u, state)
+        if offset:
+            r, k, v, w, dy = (_off16(x) for x in (r, k, v, w, dy))
+        got = rs.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_out, L, D)
+        again = rs.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_out, L, D)
+        want = ref.rwkv6_scan_bwd_ref(r.float(), k.float(), v.float(), w, u,
+                                      state, dy.float(), ds_out)
+        # the witness: autograd through the plain scan, the inputs' types
+        leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u)]
+        s_leaf = None if state is None else state.clone().requires_grad_()
+        y, s = ref.rwkv6_scan_ref(*leaves, state=s_leaf)
+        torch.autograd.backward([y, s], [dy, torch.zeros_like(s)
+                                         if ds_out is None else ds_out])
+        sync()
+        witness_grads = [x.grad for x in leaves] + [
+            None if s_leaf is None else s_leaf.grad]
+        low = BWD_TOL * 2.0 ** -8 if dtype == "bfloat16" else BWD_TOL_FP32
+        tols = (low, low, low) + (BWD_TOL_FP32,) * 3
+        errs = {nm: _rel_peak(g, w_) for nm, g, w_ in zip(names, got, want)
+                if nm != "dstate" or state is not None}
+        witness = {nm: _rel_peak(g, w_) for nm, g, w_
+                   in zip(names, witness_grads, want) if g is not None}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        types = [str(g.dtype) for g in got]
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        shape = [B, H, T, K, V]
+        cases.append({"case": label, "shape": shape, "type": dtype,
+                      "state_and_cotangent": with_state, "decay": decay,
+                      "rows_off_16_bytes": offset, "chunks": rs.n_chunks(T),
+                      "rel_err": errs, "witness_rel_err": witness,
+                      "grad_types": types, "bit_identical_second_call": same})
+        check(finite, f"rwkv6_scan_bwd {label}: non-finite gradient")
+        bad = {nm: e for (nm, e), tol in zip(errs.items(), tols) if not e <= tol}
+        check(not bad, f"rwkv6_scan_bwd {label} {shape}: relative errors "
+              f"{bad} past {tols} of the peak; the plain version in "
+              f"{dtype} reads {witness}")
+        check(same, f"rwkv6_scan_bwd {label}: a second call differs")
+        check(types == [str(r.dtype)] * 3 + ["torch.float32"] * 3,
+              f"rwkv6_scan_bwd {label}: gradient types {types}")
+        del r, k, v, w, u, state, dy, ds_out, L, D, got, again, want, leaves
+        del s_leaf, y, s, witness_grads
+        torch.cuda.empty_cache()
+    return cases
 
 
 def _leaf_rel_l2(a, b) -> dict:
@@ -1756,18 +1904,20 @@ def _update_check(arch, params, batch, grads, loss):
     return out
 
 
-def phase_train(arch_name: str):
+def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
+                steps: int = TRAIN_STEPS, microbatch: int = 1):
     """``launch.train.train`` at the full published configuration: seeded
-    bf16 weights, AdamW, the ``SyntheticLM`` stream, TRAIN_BATCH x TRAIN_T
-    tokens a step, TRAIN_STEPS steps, launch counts from 0 just before and
-    read just after (each step must launch the forward and the backward
-    kernel once a layer). Each step is timed (host clock to a synchronize)
-    and one traced; the loss must fall as ``test_loss_decreases_on_
-    structured_stream`` requires. Then the gradient check at the published
-    width cut to 2 layers with batch 1: a first step's gradients with the
-    kernels against the same step with the plain attention, leaf by leaf
-    (relative L2), beside the plain attention's own bf16-vs-fp32 error.
-    Returns the loop's launch counts."""
+    bf16 weights, AdamW, the ``SyntheticLM`` stream, ``batch`` x TRAIN_T
+    tokens a step in ``microbatch`` microbatches, ``steps`` steps, launch
+    counts from 0 just before and read just after (each step must launch
+    the family's forward and backward kernel, ``TRAIN_KERNELS[arch.family]``,
+    once a layer and microbatch). Each step is timed
+    (host clock to a synchronize) and one traced; the loss must fall as
+    ``test_loss_decreases_on_structured_stream`` requires. Then the
+    gradient check at the published width cut to 2 layers with batch 1: a
+    first step's gradients with the kernels against the same step with the
+    plain attention (or scan), leaf by leaf (relative L2), beside the plain
+    version's own bf16-vs-fp32 error. Returns the loop's launch counts."""
     import dataclasses
 
     import numpy as np
@@ -1776,6 +1926,8 @@ def phase_train(arch_name: str):
     from repro_torch.launch import train as train_mod
     from repro_torch.models import get_arch, init_params
     arch = get_arch(arch_name)
+    fwd, bwd, entry, plain, body = TRAIN_KERNELS[arch.family]
+    bodies = lambda: dict(getattr(ops, bwd).launches_by_body)  # noqa: E731
     walls, traced = [], {}   # untraced steps' walls; the traced step's
     allocs = []              # the caching allocator's counters, each step
     make = train_mod.make_train_step
@@ -1813,8 +1965,9 @@ def phase_train(arch_name: str):
         return step
 
     cfg = train_mod.TrainConfig(arch=arch_name, scale="full",
-                                steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
-                                seq_len=TRAIN_T, log_every=1, device=DEVICE)
+                                steps=steps, global_batch=batch,
+                                seq_len=TRAIN_T, microbatch=microbatch,
+                                log_every=1, device=DEVICE)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train_mod.make_train_step = timed_make
@@ -1825,21 +1978,21 @@ def phase_train(arch_name: str):
         sync()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
-        by_body = dict(ops.flash_attention_bwd.launches_by_body)
+        by_body = bodies() if body else None
     finally:
         train_mod.make_train_step = make
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [l for _, l in out["losses"]]
     del out
     torch.cuda.empty_cache()
-    per_step = {k: launches[k] / TRAIN_STEPS
-                for k in ("flash_attention", "flash_attention_bwd")}
-    tokens = TRAIN_BATCH * TRAIN_T
+    per_step = {k: launches[k] / steps for k in (fwd, bwd)}
+    tokens = batch * TRAIN_T
     steady = statistics.median(walls[1:])
     line = {"phase": f"train_{arch_name}", "arch": arch_name,
             "layers": arch.n_layers, "params": arch.n_params(),
-            "optimizer": "adamw", "steps": TRAIN_STEPS,
-            "global_batch": TRAIN_BATCH, "seq_len": TRAIN_T,
+            "optimizer": "adamw", "steps": steps,
+            "global_batch": batch, "microbatch": microbatch,
+            "seq_len": TRAIN_T,
             "wall_s": wall, "first_step_s": walls[0],
             "step_s": walls[1:], "step_median_s": steady,
             "note": "first_step_s: step 1; step_s: the other untraced "
@@ -1855,15 +2008,15 @@ def phase_train(arch_name: str):
             "allocator_by_step": allocs,
             "traced_step": {"index": TRAIN_TRACE_STEP, **traced},
             "peak_memory_gb": peak_gb, "losses": losses,
-            "launches": launches, "launches_per_step": per_step,
-            "backward_launches_by_body": by_body}
+            "launches": launches, "launches_per_step": per_step}
+    if body:
+        line["backward_launches_by_body"] = by_body
     check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
-    check(per_step["flash_attention"] == arch.n_layers
-          and per_step["flash_attention_bwd"] == arch.n_layers,
+    check(per_step[fwd] == per_step[bwd] == arch.n_layers * microbatch,
           f"train: {per_step} launches a step, not one forward and one "
-          f"backward a layer ({arch.n_layers})")
-    check(by_body["wgmma"] == launches["flash_attention_bwd"],
-          f"train: the backward ran {by_body}, not the wgmma body every "
+          f"backward a layer ({arch.n_layers}) and microbatch ({microbatch})")
+    check(not body or by_body[body] == launches[bwd],
+          f"train: the backward ran {by_body}, not the {body} body every "
           f"time")
     check(min(losses[2:]) < losses[0] - 0.05,
           f"train: the loss did not fall on the structured stream: {losses}")
@@ -1880,15 +2033,15 @@ def phase_train(arch_name: str):
     ops.reset_launch_counts()
     loss_k, g_kernel = _first_step_grads(small, params, batch)
     grad_launches = ops.launch_counts()
-    grad_bodies = dict(ops.flash_attention_bwd.launches_by_body)
-    attention = ops.attention
-    ops.attention = ref.flash_attention_ref
+    grad_bodies = bodies() if body else None
+    kernel_entry = getattr(ops, entry)
+    setattr(ops, entry, getattr(ref, plain))
     try:
         loss_p, g_plain = _first_step_grads(small, params, batch)
         loss_32, g_fp32 = _first_step_grads(small, _cast(params, torch.float32),
                                             batch)
     finally:
-        ops.attention = attention
+        setattr(ops, entry, kernel_entry)
     err = _leaf_rel_l2(g_kernel, g_plain)
     witness = _leaf_rel_l2(g_plain, g_fp32)
     limit = {k: max(GRAD_REL_L2_FLOOR, 2 * witness[k]) for k in err}
@@ -1896,15 +2049,16 @@ def phase_train(arch_name: str):
     line["grad_check"] = {
         "layers": 2, "batch": 1, "seq_len": TRAIN_T,
         "loss_kernel": loss_k, "loss_plain": loss_p, "loss_plain_fp32": loss_32,
-        "launches": {k: grad_launches[k] for k in ("flash_attention",
-                                                   "flash_attention_bwd")},
-        "backward_launches_by_body": grad_bodies,
+        "launches": {k: grad_launches[k] for k in (fwd, bwd)},
+        "plain": f"ops.{entry} = ref.{plain}",
         "kernel_vs_plain_rel_l2_max": max(err.values()),
         "plain_bf16_vs_fp32_rel_l2_max": max(witness.values()),
         "kernel_vs_plain_rel_l2": err,
         "plain_bf16_vs_fp32_rel_l2": witness,
         "limit": f"per leaf max({GRAD_REL_L2_FLOOR}, 2 x the plain "
-                 f"attention's bf16-vs-fp32 error)"}
+                 f"version's bf16-vs-fp32 error)"}
+    if body:
+        line["grad_check"]["backward_launches_by_body"] = grad_bodies
     del g_plain, g_fp32
     torch.cuda.empty_cache()
     try:
@@ -1912,11 +2066,10 @@ def phase_train(arch_name: str):
                                              loss_k)
     finally:
         emit(line)
-    check(grad_launches["flash_attention_bwd"] == 2
-          and grad_bodies["wgmma"] == 2,
+    check(grad_launches[bwd] == 2 and (not body or grad_bodies[body] == 2),
           f"grad check: {grad_launches}, {grad_bodies} (one backward a "
-          f"layer, the wgmma body)")
-    check(not bad, f"train: gradients off the plain attention's: {bad}")
+          f"layer" + (f", on the {body} body)" if body else ")"))
+    check(not bad, f"train: gradients off the plain {entry}'s: {bad}")
     del params, g_kernel, batch
     torch.cuda.empty_cache()
     return launches
@@ -2099,7 +2252,7 @@ def train_kernel_entries(timer, launches: int) -> list:
             "body": body,
             "ms": timer.ms(fn, reps=10),
             "call_ms": timer.ms(fn, hold=False, reps=10),
-            "kernel_ms": _kernel_ms(fn),
+            **_kernel_ms(fn),
             "plain_ms": timer.ms(plain, reps=5),
             "autograd_plain_ms": autograd_plain_ms,
             "bound_ms": bound * 1e3,
@@ -2119,6 +2272,79 @@ def train_kernel_entries(timer, launches: int) -> list:
         del q, k, v, do, o, lse, leaves, sq, sk, sv
         torch.cuda.empty_cache()
     return entries
+
+
+# the scan's backward's kernels, one launch each a call: A' the chunks'
+# adjoints, B' the carry back over the chunks, C' the row pass, C'' the
+# value pass, D' du
+SCAN_BWD_KERNELS = ("rwkv6_bwd_chunk_adjoint", "rwkv6_bwd_chunk_carry",
+                    "rwkv6_bwd_rows", "rwkv6_bwd_values", "rwkv6_bwd_du")
+
+
+def scan_bwd_kernel_entry(timer) -> dict:
+    """rwkv6_scan_bwd at rwkv6-3b's training call (1 x TRAIN_T, H 40, K =
+    V = 64, bf16 r/k/v/dy, no state), seeded inputs and the forward
+    kernel's chunk states and decays: the kernel against its plain version
+    and the backward of autograd through the plain scan. The caller adds
+    ``launches``, the kernel's count on the training path."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import get_arch
+    rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    a = get_arch(TRAIN_RWKV_ARCH)
+    B, H, T, K = 1, a.n_heads, TRAIN_T, a.d_model // a.n_heads
+    V = K
+    r, k, v, w, u, _, dy, _ = _scan_inputs(B, H, T, K, V, "bfloat16", False,
+                                           None, seed=7)
+    _, _, L, D = rs._forward(r, k, v, w, u, None)
+    fn = lambda: rs.rwkv6_scan_bwd(r, k, v, w, u, None, dy, None, L, D)  # noqa: E731
+    plain = lambda: ref.rwkv6_scan_bwd_ref(r, k, v, w, u, None, dy, None)  # noqa: E731
+    got = fn()
+    want = ref.rwkv6_scan_bwd_ref(r.float(), k.float(), v.float(), w, u,
+                                  None, dy.float(), None)
+    err = max(float((g.float() - x).abs().max()) for g, x in zip(got, want))
+    del got, want
+    leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u)]
+
+    def plain_fb():
+        y, _ = ref.rwkv6_scan_ref(*leaves)
+        torch.autograd.grad(y, leaves, dy)
+    plain_fwd = lambda: ref.rwkv6_scan_ref(*leaves)  # noqa: E731
+    es, nC = r.element_size(), rs.n_chunks(T)
+    # each input read once (r, k, v, dy; w_log, u; the forward's chunk
+    # states and decays), each gradient written once
+    nbytes = B * H * T * (3 * K + V) * es + B * H * T * K * 4 + H * K * 4 \
+        + B * H * nC * (K * V + K) * 4 \
+        + B * H * T * (2 * K + V) * es + B * H * T * K * 4 + H * K * 4
+    # per token and state element: S's recurrence (3), S.dy (2), G's
+    # recurrence (3), G v (2), G^T k (2), S * G for dw (2)
+    flops = B * H * T * (14 * K * V + 8 * K + 4 * V)
+    autograd_plain_ms = timer.ms(plain_fb, reps=3) - timer.ms(plain_fwd, reps=3)
+    entry = {
+        "name": "rwkv6_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        "replaces": "src/repro/models/layers.py:364 (no TPU kernel: the "
+                    "reference trains through decay_linear_attention, which "
+                    "XLA differentiates)",
+        "max_abs_err": err,
+        "ms": timer.ms(fn, reps=20),
+        "call_ms": timer.ms(fn, hold=False, reps=20),
+        **_kernel_ms(fn, expect=SCAN_BWD_KERNELS),
+        "plain_ms": timer.ms(plain, reps=3),
+        "autograd_plain_ms": autograd_plain_ms,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / FP32_OPS_PER_S else "operations",
+        "library_ms": None,
+        "shape": {"arch": TRAIN_RWKV_ARCH, "call": "train", "B": B, "H": H,
+                  "T": T, "K": K, "V": V, "type": str(r.dtype),
+                  "state": False, "chunks": nC, "flops": flops,
+                  "bytes": nbytes}}
+    del r, k, v, w, u, dy, L, D, leaves
+    torch.cuda.empty_cache()
+    return entry
 
 
 def phase_planner() -> None:
@@ -2181,6 +2407,7 @@ def _device_busy(fn, split: bool = False):
 # kinds of device activity in a trace, by a piece of the kernel's name
 # (first match wins); the rest is "other"
 _KINDS = (("attention_backward", "flash_bwd"), ("attention_forward", "flash_fwd"),
+          ("scan_backward", "rwkv6_bwd"), ("scan_forward", "rwkv6_"),
           ("matmul", "gemm"), ("matmul", "cutlass"), ("matmul", "xmma"),
           ("matmul", "nvjet"),
           ("reduction", "reduce"), ("softmax_logsumexp", "softmax"),
@@ -2311,26 +2538,57 @@ class _Timer:
         return statistics.median(times)
 
 
-def _kernel_ms(fn, reps: int = 5):
-    """Device time per call of each kernel that ``fn`` launches, by name,
-    from a ``torch.profiler`` trace of ``reps`` calls (None where the trace
-    holds no device activity: "not measured")."""
+def _kernel_ms(fn, reps: int = 5, expect: tuple = (), tries: int = 3,
+               warm_s: float = 0.25) -> dict:
+    """``{"kernel_ms": {name: ms}}``: device time per call of each kernel
+    that ``fn`` launches, by name, from a ``torch.profiler`` trace of
+    ``reps`` calls. A trace can miss the kernels launched first in it (late
+    in a long process, whole calls), so the profiler's warm-up step runs
+    ``fn`` for ``warm_s`` seconds before the ``reps`` calls it keeps, and a
+    trace is held only where it is whole: every kernel seen a multiple of
+    ``reps`` times (a call launches each a fixed number of times) and a
+    kernel seen under each name in ``expect`` (a prefix). After ``tries``
+    traces that are not, ``kernel_ms`` is None ("not measured") and
+    ``kernel_ms_note`` gives the last trace's counts."""
     import re
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    clean = lambda k: re.sub(r"^void |\(anonymous namespace\)::|\(.*$",  # noqa: E731
+                             "", k)
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    out = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0:
-            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key)
-            out[name] = e.self_device_time_total / reps / 1e3
-    return out or None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            t0, n = time.perf_counter(), 0
+            while n < 3 or time.perf_counter() - t0 < warm_s:
+                fn()
+                n += 1
+            sync()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            sync()
+            prof.step()
+        counts, out = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                counts[clean(e.name)] = counts.get(clean(e.name), 0) + 1
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                name = clean(e.key)
+                out[name] = (out.get(name, 0.0)
+                             + e.self_device_time_total / reps / 1e3)
+        missing = [n for n in expect
+                   if not any(c.startswith(n) for c in counts)]
+        if out and not missing and not any(c % reps for c in counts.values()):
+            return {"kernel_ms": out}
+    return {"kernel_ms": None,
+            "kernel_ms_note": f"{tries} traces of {reps} calls, none whole: "
+                              f"device events by name in the last {counts}; "
+                              f"expected and missing {missing}"}
 
 
 def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
@@ -2378,7 +2636,7 @@ def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
         "ms": timer.ms(lambda: ops.join_probe(keys, slots)),
         "clean_ms": timer.ms(lambda: ops.join_probe(keys, slots), clean=True),
         "call_ms": timer.ms(lambda: ops.join_probe(keys, slots), hold=False),
-        "kernel_ms": _kernel_ms(lambda: ops.join_probe(keys, slots)),
+        **_kernel_ms(lambda: ops.join_probe(keys, slots)),
         # the probe's bytes with no gathers: a copy of the keys
         "copy_ms": timer.ms(lambda: found.copy_(keys)),
         "plain_ms": timer.ms(lambda: ref.slot_gather_ref(keys, slots)),
@@ -2399,7 +2657,7 @@ def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
                              clean=True),
         "call_ms": timer.ms(lambda: ops.build_direct_table(build_keys, m),
                             hold=False),
-        "kernel_ms": _kernel_ms(lambda: ops.build_direct_table(build_keys, m)),
+        **_kernel_ms(lambda: ops.build_direct_table(build_keys, m)),
         "plain_ms": timer.ms(lambda: ref.build_direct_table_ref(build_keys, m)),
         "bound_ms": (build_keys.shape[0] * 4 + m * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
@@ -2420,7 +2678,7 @@ def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
                              clean=True),
         "call_ms": timer.ms(lambda: ops.segment_reduce(deltas, segs, 1),
                             hold=False),
-        "kernel_ms": _kernel_ms(lambda: ops.segment_reduce(deltas, segs, 1)),
+        **_kernel_ms(lambda: ops.segment_reduce(deltas, segs, 1)),
         "plain_ms": timer.ms(lambda: ref.segment_reduce_ref(deltas, segs, 1)),
         "bound_ms": max((n_fold * 4 + n_fold * 4 + 4) / HBM_BYTES_PER_S,
                         n_fold / FP32_OPS_PER_S) * 1e3,
@@ -2561,7 +2819,7 @@ def lm_kernel_entries(timer, attn, scan_launches, scan_shapes):
             "max_abs_err": attention_close(
                 fn(), plain(), f"flash_attention at {arch_name} {call}"),
             "ms": timer.ms(fn), "call_ms": timer.ms(fn, hold=False),
-            "kernel_ms": _kernel_ms(fn),
+            **_kernel_ms(fn),
             "plain_ms": timer.ms(plain, reps=10),
             # the kernel's products run on the tensor cores (bf16 q)
             "bound_ms": bound_tensor * 1e3,
@@ -2605,7 +2863,7 @@ def lm_kernel_entries(timer, attn, scan_launches, scan_shapes):
             "max_abs_err": scan_close(fn(), plain(), f"rwkv6_scan at {call}"),
             "ms": timer.ms(fn), "call_ms": timer.ms(fn, hold=False),
             # the three phases at the prefill (A, B, C), C alone at decode
-            "kernel_ms": _kernel_ms(fn),
+            **_kernel_ms(fn),
             "plain_ms": timer.ms(plain, reps=3 if T > 1 else 10),
             "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                             flops / FP32_OPS_PER_S) * 1e3,
@@ -2712,11 +2970,18 @@ def main() -> int:
     check(train_launches["flash_attention_bwd"] > 0,
           "flash_attention_bwd never launched on the training path")
     phase_train_resume(TRAIN_ARCH, root)
+    rwkv_launches = phase_train(TRAIN_RWKV_ARCH, batch=TRAIN_RWKV_BATCH,
+                                steps=TRAIN_RWKV_STEPS,
+                                microbatch=TRAIN_RWKV_MICROBATCH)
+    check(rwkv_launches["rwkv6_scan_bwd"] > 0,
+          "rwkv6_scan_bwd never launched on the training path")
     phase_planner()
     timer = _Timer()
     entries += lm_kernel_entries(timer, attn, scan_launches, scan_shapes)
     entries += train_kernel_entries(timer,
                                     train_launches["flash_attention_bwd"])
+    entries.append({**scan_bwd_kernel_entry(timer),
+                    "launches": rwkv_launches["rwkv6_scan_bwd"]})
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": entries})
     print(smi, flush=True)

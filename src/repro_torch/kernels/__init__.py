@@ -6,7 +6,8 @@
                     with ``build_direct_table`` building its slot table
   flash_attention — online-softmax attention (causal/SWA/chunked/GQA),
                     with its backward ``flash_attention_bwd`` for training
-  rwkv6_scan      — the RWKV6 WKV recurrence from a given state
+  rwkv6_scan      — the RWKV6 WKV recurrence from a given state, with its
+                    backward ``rwkv6_scan_bwd`` for training
 
 The CUDA C++ sources are in ``csrc/``, built with ``nvcc`` for ``sm_90a`` at
 first use (``build.py``) and bound with ``ctypes``. Each kernel has a plain
@@ -17,8 +18,9 @@ torch version in ``ref.py`` that the wrappers take for CPU tensors;
 from . import ops, ref
 from .flash_attention import flash_attention, flash_attention_bwd
 from .join_probe import build_direct_table, join_probe
-from .rwkv6_scan import rwkv6_scan
+from .rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 from .segment_reduce import segment_reduce
 
 __all__ = ["ops", "ref", "segment_reduce", "join_probe", "build_direct_table",
-           "flash_attention", "flash_attention_bwd", "rwkv6_scan"]
+           "flash_attention", "flash_attention_bwd", "rwkv6_scan",
+           "rwkv6_scan_bwd"]

@@ -32,7 +32,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 SOURCES = ("join_probe", "segment_reduce", "flash_attention",
-           "flash_attention_bwd", "rwkv6_scan")
+           "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -2,7 +2,8 @@
 
 A CUDA tensor goes to the hand-written Hopper kernels (``join_probe``,
 ``build_direct_table``, ``segment_reduce``, ``flash_attention`` with its
-backward ``flash_attention_bwd``, ``rwkv6_scan``); a CPU tensor to their
+backward ``flash_attention_bwd``, ``rwkv6_scan`` with its backward
+``rwkv6_scan_bwd``); a CPU tensor to their
 plain torch versions in :mod:`.ref`.
 The reference package's off-by-default ``use_pallas`` switch has no
 counterpart: on the card the kernels always run. ``equi_probe`` keeps the
@@ -21,7 +22,7 @@ from typing import Dict, Optional
 from . import ref
 from .flash_attention import flash_attention, flash_attention_bwd
 from .join_probe import build_direct_table, join_probe
-from .rwkv6_scan import rwkv6_scan
+from .rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 from .segment_reduce import segment_reduce
 
 __all__ = ["segment_reduce", "equi_probe", "build_direct_table",
@@ -34,7 +35,8 @@ KERNELS = {"join_probe": join_probe,
            "segment_reduce": segment_reduce,
            "flash_attention": flash_attention,
            "flash_attention_bwd": flash_attention_bwd,
-           "rwkv6_scan": rwkv6_scan}
+           "rwkv6_scan": rwkv6_scan,
+           "rwkv6_scan_bwd": rwkv6_scan_bwd}
 
 MAX_DIRECT_KEY_SPACE = 1 << 22
 

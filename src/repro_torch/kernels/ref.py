@@ -7,8 +7,8 @@
     searchsorted probe ``ops.equi_probe`` takes without a key space) and
     :func:`segment_reduce_ref`, and for the LM kernels
     :func:`flash_attention_ref` (with its log-sum-exp),
-    :func:`flash_attention_bwd_ref` (its gradients) and
-    :func:`rwkv6_scan_ref`;
+    :func:`flash_attention_bwd_ref` (its gradients),
+    :func:`rwkv6_scan_ref` and :func:`rwkv6_scan_bwd_ref` (its gradients);
   * numpy twins (``*_np``) — the ``"numpy"`` compiled backend, copied from
     the reference package.
 """
@@ -23,7 +23,7 @@ import torch
 
 __all__ = ["build_direct_table_ref", "slot_gather_ref", "join_probe_ref",
            "segment_reduce_ref", "flash_attention_ref",
-           "flash_attention_bwd_ref", "rwkv6_scan_ref",
+           "flash_attention_bwd_ref", "rwkv6_scan_ref", "rwkv6_scan_bwd_ref",
            "join_probe_np", "segment_reduce_np", "SEGMENT_OPS"]
 
 SEGMENT_OPS = ("sum", "count", "min", "max")
@@ -211,6 +211,54 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = torch.stack(ys, dim=2) if ys else \
         torch.zeros((B, H, 0, V), dtype=torch.float32, device=r.device)
     return y.to(r.dtype), S
+
+
+def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w_log: torch.Tensor, u: torch.Tensor,
+                       state: Optional[torch.Tensor], dy: torch.Tensor,
+                       ds_out: Optional[torch.Tensor]):
+    """The gradients of :func:`rwkv6_scan_ref` given ``dy`` (B,H,T,V) on y
+    and ``ds_out`` (B,H,K,V) on the final state (zeros when None), as a
+    reverse sequential recurrence in fp32. With G_T = ds_out and
+    G_{t-1} = diag(exp w_t) G_t + r_t (x) dy_t::
+
+        dr_t = S_{t-1} dy_t + (u * k_t)(v_t . dy_t)
+        dk_t = G_t v_t + (u * r_t)(v_t . dy_t)
+        dv_t = G_t^T k_t + (sum_k r_t u k_t) dy_t
+        dw_t = exp(w_t) * sum_v (S_{t-1} * G_t)
+        du = sum_{b,t} (r_t * k_t)(v_t . dy_t)        (H, K)
+        dstate = G_0
+
+    Returns (dr, dk, dv in r's type; dw_log, du, dstate fp32). The plain
+    version beside the ``rwkv6_scan_bwd`` kernel."""
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, wf, dyf = (x.float() for x in (r, k, v, w_log, dy))
+    uf = u.float()
+    S = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device) \
+        if state is None else state.float()
+    states = []                          # S_{t-1} for each t
+    for t in range(T):
+        states.append(S)
+        S = S * torch.exp(wf[:, :, t])[..., None] \
+            + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+    G = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device) \
+        if ds_out is None else ds_out.float()
+    vd = (vf * dyf).sum(-1)                                  # (B, H, T)
+    bonus = (rf * uf[:, None] * kf).sum(-1)                  # (B, H, T)
+    dr, dk, dv, dw = (torch.zeros_like(x) for x in (rf, kf, vf, wf))
+    for t in range(T - 1, -1, -1):
+        d = torch.exp(wf[:, :, t])
+        dr[:, :, t] = torch.einsum("bhkv,bhv->bhk", states[t], dyf[:, :, t]) \
+            + uf * kf[:, :, t] * vd[:, :, t, None]
+        dk[:, :, t] = torch.einsum("bhkv,bhv->bhk", G, vf[:, :, t]) \
+            + uf * rf[:, :, t] * vd[:, :, t, None]
+        dv[:, :, t] = torch.einsum("bhkv,bhk->bhv", G, kf[:, :, t]) \
+            + bonus[:, :, t, None] * dyf[:, :, t]
+        dw[:, :, t] = d * (states[t] * G).sum(-1)
+        G = d[..., None] * G + rf[:, :, t, :, None] * dyf[:, :, t, None, :]
+    du = (rf * kf * vd[..., None]).sum((0, 2))
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du, G)
 
 
 def join_probe_np(probe_keys, table_keys):

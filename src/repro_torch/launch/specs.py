@@ -7,8 +7,9 @@ dry-run lowers) and ``shape_kind`` need ``launch/sharding.py`` or serve
 the dry-run, and wait for the port's sharding (ROADMAP A3).
 
 A train step takes gradients with autograd: on the card the attention's
-backward is the ``flash_attention_bwd`` kernel, on the CPU autograd through
-the plain attention. It updates ``params`` and the optimizer state IN
+backward is the ``flash_attention_bwd`` kernel and the RWKV6 scan's the
+``rwkv6_scan_bwd`` kernel, on the CPU autograd through their plain
+versions. It updates ``params`` and the optimizer state IN
 PLACE and returns them (the reference's trainer donates both to its jit).
 """
 

@@ -17,8 +17,8 @@ The port of ``repro.launch.train``, the reference's loop:
 It runs on the card unless the config names another device
 (``device="cpu"``); asking for the card without CUDA raises. On the card
 the attention's backward is the hand-written ``flash_attention_bwd``
-kernel; RWKV6's scan has no backward kernel yet (ROADMAP A2.7), so
-training rwkv6-3b on the card raises. A step is deterministic on either
+kernel and RWKV6's scan's the hand-written ``rwkv6_scan_bwd``, so every
+registered architecture trains there. A step is deterministic on either
 device, so a resumed run lands on the uninterrupted run's bits. The
 reference's ``mesh_shape`` (a multi-device mesh), its ``strategy``
 (which the reference reads only with a mesh) and its ``compress`` (int8

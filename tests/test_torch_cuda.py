@@ -54,8 +54,16 @@ runs where only torch is installed::
     tiles, GQA groups of 1, 4 and 8, a chunk across tiles, causal Tq != Tk
     both ways, T 4,096) and its per-body launch counts; the forward's
     row log-sum-exps (single pass, split-key combine, CUDA-core body);
-    training's backward through the wrappers: attention's gradients from
-    the kernel (one launch each way), the scan raising under grad;
+    training's backward through the wrappers: attention's and the scan's
+    gradients from their kernels (one launch each way, a second backward
+    bit-identical);
+  * ``rwkv6_scan_bwd`` against ``rwkv6_scan_bwd_ref`` on the same inputs:
+    training's T (2,048, 32 chunks), a ragged tail, one chunk, one token,
+    a given state with a final-state cotangent, the decay floor -e**2
+    within and across a chunk boundary, fp32, rows off 16 bytes, K 16 / 32
+    with V 32 / 96: dr, dk, dv within two bf16 roundings of their peak
+    (1e-4 of it in fp32), dw, du, dstate within 1e-4, the gradients' types
+    and layout, a second call bit-identical;
   * a scaled ``Server.generate`` on the card against the same server on
     the CPU (fp32 parameters: the same tokens, logits within 1e-3), for
     danube, rwkv6, qwen2-vl (M-RoPE) and minicpm3 (MLA); for
@@ -171,7 +179,8 @@ def test_launches_are_counted_on_the_card_only(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"join_probe": 1, "build_direct_table": 1,
                                    "segment_reduce": 1, "flash_attention": 0,
-                                   "flash_attention_bwd": 0, "rwkv6_scan": 0}
+                                   "flash_attention_bwd": 0, "rwkv6_scan": 0,
+                                   "rwkv6_scan_bwd": 0}
 
 
 def _view(a, offset, cuda):
@@ -653,9 +662,9 @@ def test_flash_attention_forward_writes_the_rows_log_sum_exp(cuda, Tq, Tk, hd,
 
 
 def test_backward_through_the_wrappers_on_the_card(cuda):
-    """Training's backward on the card: attention's gradients come from
-    the backward kernel (one launch a call); the scan, which has no
-    backward kernel yet, raises instead of returning a detached output."""
+    """Training's backward on the card: attention's and the scan's
+    gradients come from their backward kernels (one launch a call), in the
+    inputs' types, the same bits call after call."""
     B, H, KV, T, hd = 2, 8, 2, 96, 80
     q, k, v, do = _bwd_inputs(cuda, B, H, KV, T, T, hd, hd, "bfloat16")
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -675,14 +684,30 @@ def test_backward_through_the_wrappers_on_the_card(cuda):
     # serving (no grad) launches no backward and saves nothing
     with torch.no_grad():
         assert ops.attention(*leaves, window=64).grad_fn is None
-    # the scan under grad raises; without grad it runs
+    # the scan under grad: its backward kernel, against the plain gradients
     r, kk, vv, w, u, state = (_on(a, cuda) for a in rwkv_inputs(1, 2, 70, 16,
                                                                  16))
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        ops.rwkv_scan(r.requires_grad_(), kk, vv, w, u)
+    dy = _on(np.random.default_rng(70).standard_normal((1, 2, 70, 16)), cuda)
+    grads = []
+    for _ in range(2):
+        sl = [x.clone().requires_grad_() for x in (r, kk, vv, w, u, state)]
+        ops.reset_launch_counts()
+        y, s = ops.rwkv_scan(*sl[:5], state=sl[5])
+        assert y.grad_fn is not None
+        y.backward(dy)
+        counts = ops.launch_counts()
+        assert counts["rwkv6_scan"] == 1 and counts["rwkv6_scan_bwd"] == 1
+        grads.append([x.grad for x in sl])
+    want = ref.rwkv6_scan_bwd_ref(r, kk, vv, w, u, state, dy, None)
+    for g, wnt, x in zip(grads[0], want, (r, kk, vv, w, u, state)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        torch.testing.assert_close(g, wnt, rtol=1e-4,
+                                   atol=1e-4 * float(wnt.abs().max()))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    # serving (no grad) launches no backward and keeps nothing
     with torch.no_grad():
-        y, _ = ops.rwkv_scan(r, kk, vv, w, u)
-    assert y.shape == (1, 2, 70, 16)
+        y, _ = ops.rwkv_scan(*sl[:5], state=sl[5])
+    assert y.grad_fn is None and y.shape == (1, 2, 70, 16)
     # bf16 q over an fp32 cache is serving's pair: no backward for it
     with pytest.raises(ValueError, match="one type"):
         ops.attention(leaves[0], k.float(), v.float())
@@ -743,6 +768,68 @@ def test_rwkv6_scan_over_rows_off_16_bytes(cuda, T, K, dt, with_state):
 def test_rwkv6_scan_extreme_decay_across_a_chunk_boundary(cuda):
     y, s = _scan_case(cuda, 1, 2, 130, 64, 64, "float32", True, decay=-40.0)
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
+
+
+# the backward kernel against rwkv6_scan_bwd_ref in fp32: dr, dk, dv within
+# two bf16 roundings of their peak (1e-4 of it for fp32 inputs), dw, du and
+# dstate (fp32) within 1e-4 of theirs; decay "boundary" puts the model's
+# floor -e**2 on tokens 32..95, across the first chunk boundary
+SCAN_BWD_TOL = {"bfloat16": 2 * 2.0 ** -8, "float32": 1e-4}
+
+
+@pytest.mark.parametrize("B,H,T,K,V,dt,with_state,decay,offset", [
+    (1, 4, 2048, 64, 64, "bfloat16", False, None, False),   # training's T
+    (1, 4, 2000, 64, 64, "bfloat16", False, None, False),   # ragged tail
+    (2, 3, 64, 64, 64, "bfloat16", True, None, False),      # one chunk
+    (2, 3, 37, 64, 64, "bfloat16", True, None, False),
+    (2, 3, 1, 16, 16, "float32", True, None, False),
+    (2, 3, 300, 64, 64, "bfloat16", True, None, False),
+    (1, 2, 300, 64, 64, "float32", True, "boundary", False),
+    (1, 2, 130, 64, 64, "float32", True, -7.38905609893065, False),
+    (1, 2, 2048, 64, 64, "float32", False, None, False),
+    (1, 4, 300, 64, 64, "bfloat16", True, None, True),      # rows off 16 B
+    (2, 3, 200, 16, 32, "float32", True, None, False),
+    (1, 3, 200, 32, 96, "bfloat16", True, None, False),     # 2 column warps
+    (1, 3, 200, 64, 160, "bfloat16", True, None, False),    # 3 column warps
+    (1, 3, 200, 64, 256, "bfloat16", True, None, False),    # 4 column warps
+    (1, 2, 130, 64, 256, "float32", True, "boundary", False),
+    (2, 3, 200, 16, 256, "float32", True, None, False),
+    (1, 2, 300, 64, 256, "bfloat16", True, None, True),     # rows off 16 B
+])
+def test_rwkv6_scan_backward_matches_plain(cuda, B, H, T, K, V, dt,
+                                           with_state, decay, offset):
+    r, k, v, w, u, s0 = rwkv_inputs(B, H, T, K, V, seed=T + V,
+                                    decay=decay if isinstance(decay, float)
+                                    else None)
+    if decay == "boundary":
+        w[:, :, 32:96] = -np.exp(2.0)
+    rng = np.random.default_rng(T + V + 1)
+    dy = rng.standard_normal((B, H, T, V))
+    ds = rng.standard_normal((B, H, K, V))
+    args = [_on(r, cuda, dt), _on(k, cuda, dt), _on(v, cuda, dt),
+            _on(w, cuda), _on(u, cuda)]
+    state = _on(s0, cuda) if with_state else None
+    ds_out = _on(ds, cuda) if with_state else None
+    _, _, L, D = rs._forward(*args, state)
+    args[:4] = [_on(x.cpu(), cuda, dt if i < 3 else "float32", offset)
+                for i, x in enumerate(args[:4])]
+    dy = _on(dy, cuda, dt, offset)
+    ops.reset_launch_counts()
+    got = rs.rwkv6_scan_bwd(*args, state, dy, ds_out, L, D)
+    again = rs.rwkv6_scan_bwd(*args, state, dy, ds_out, L, D)
+    assert ops.launch_counts()["rwkv6_scan_bwd"] == 2
+    want = ref.rwkv6_scan_bwd_ref(*(x.float() for x in args), state,
+                                  dy.float(), ds_out)
+    torch.cuda.synchronize()
+    tols = [SCAN_BWD_TOL[dt]] * 3 + [SCAN_BWD_TOL["float32"]] * 3
+    for g, wnt, tol, typ in zip(got, want, tols,
+                                [args[0].dtype] * 3 + [torch.float32] * 3):
+        assert g.dtype == typ and torch.isfinite(g.float()).all()
+        err = float((g.float() - wnt).abs().max())
+        assert err <= tol * float(wnt.abs().max()) + 1e-30, (err, tol)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the gradients of the projections' layout: (B, T, H, .) memory
+    assert all(g.transpose(1, 2).is_contiguous() for g in got[:4])
 
 
 def _tree(fn, tree):

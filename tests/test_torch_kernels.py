@@ -167,9 +167,13 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     ops.attention(xg, x, x).sum().backward()
     o, lse = ref.flash_attention_ref(x, x, x, return_lse=True)
     ops.KERNELS["flash_attention_bwd"](x, x, x, o, lse, x)
+    # and the scan's, through autograd and directly
+    ops.rwkv_scan(xg, x, x, -x, torch.zeros(2, 16))[0].sum().backward()
+    ops.KERNELS["rwkv6_scan_bwd"](x, x, x, -x, torch.zeros(2, 16), None, x)
     assert ops.launch_counts() == {"join_probe": 0, "build_direct_table": 0,
                                    "segment_reduce": 0, "flash_attention": 0,
-                                   "flash_attention_bwd": 0, "rwkv6_scan": 0}
+                                   "flash_attention_bwd": 0, "rwkv6_scan": 0,
+                                   "rwkv6_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("call", ["join_probe", "build_direct_table",

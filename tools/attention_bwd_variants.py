@@ -252,7 +252,7 @@ def main() -> int:
                 print(json.dumps({
                     "round": r, "variant": name,
                     "shape": arch_name, "ms": timer.ms(fn, reps=20),
-                    "kernel_ms": cs._kernel_ms(fn), "rel_err_dq_dk_dv": errs,
+                    **cs._kernel_ms(fn), "rel_err_dq_dk_dv": errs,
                     "bit_identical_second_call": same}), flush=True)
             del q, k, v, do, o, lse, want
             torch.cuda.empty_cache()

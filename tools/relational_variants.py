@@ -127,7 +127,7 @@ def main() -> int:
                     torch.testing.assert_close(got, want, rtol=tol, atol=0)
             print(json.dumps({"round": rnd, "name": name, "ms": timer.ms(fn),
                               "clean_ms": timer.ms(fn, clean=True),
-                              "kernel_ms": cs._kernel_ms(fn)}), flush=True)
+                              **cs._kernel_ms(fn)}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
