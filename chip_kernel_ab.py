@@ -2,7 +2,8 @@
 """Time the relational kernels of two checkouts in turns, on one NVIDIA GPU.
 
     python3 chip_kernel_ab.py OTHER [--rounds R]
-                              [--attention [--arch NAME ...] | --attention-bwd]
+                              [--attention [--arch NAME ...] | --attention-bwd
+                               | --scan-bwd]
 
 OTHER is another checkout of the repository (for instance the parent
 commit, unpacked with ``git archive`` into a git-ignored directory). The
@@ -42,6 +43,15 @@ over seeded bf16 inputs with the plain version's output and log-sum-exps
 (so no turn builds the forward kernel). Each is held to the plain version
 in fp32 within ``chip_smoke.BWD_TOL`` bf16 roundings of its peak. Entries
 are named by the architecture.
+
+With ``--scan-bwd`` the turns time ``rwkv6_scan_bwd`` instead, at
+rwkv6-3b's training call (1 x 2,048 tokens, H 40, K = V = 64, bf16 r, k,
+v and dy, no state; ``chip_smoke._scan_inputs``' seeded inputs and the
+forward kernel's chunk states and decays, each checkout's own), with
+each checkout's body for it, held to the plain version in fp32: dr, dk,
+dv within ``chip_smoke.BWD_TOL`` bf16 roundings of their peak, dw and du
+within ``chip_smoke.BWD_TOL_FP32`` of theirs. The entry is named
+``rwkv6-3b_train``; ``kernel_ms`` splits each turn's call by kernel.
 """
 
 import importlib
@@ -158,6 +168,35 @@ def attention_bwd_turn(src: str) -> dict:
     return out
 
 
+def scan_bwd_turn(src: str) -> dict:
+    """One turn of ``--scan-bwd``, in this process."""
+    sys.path.insert(0, src)
+    sys.path.insert(1, str(HERE))
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ref
+    from repro_torch.models import get_arch
+    build.build_all(("rwkv6_scan", "rwkv6_scan_bwd"))
+    rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+    a = get_arch(cs.TRAIN_RWKV_ARCH)
+    H, K, T = a.n_heads, a.d_model // a.n_heads, cs.TRAIN_T
+    r, k, v, w, u, _, dy, _ = cs._scan_inputs(1, H, T, K, K, "bfloat16",
+                                              False, None, seed=7)
+    _, _, L, D = rs._forward(r, k, v, w, u, None)
+    fn = lambda: rs.rwkv6_scan_bwd(r, k, v, w, u, None, dy, None, L, D)  # noqa: E731
+    want = ref.rwkv6_scan_bwd_ref(r.float(), k.float(), v.float(), w, u,
+                                  None, dy.float(), None)
+    errs = [cs._rel_peak(g, x) for g, x in zip(fn(), want)][:5]
+    tols = (cs.BWD_TOL * 2.0 ** -8,) * 3 + (cs.BWD_TOL_FP32,) * 2
+    cs.check(all(e <= t for e, t in zip(errs, tols)),
+             f"{src}: rwkv6_scan_bwd at the training call: {errs}")
+    timer = cs._Timer()
+    return {"src": src, "rwkv6-3b_train": {
+        "ms": timer.ms(fn, reps=20),
+        "clean_ms": timer.ms(fn, clean=True, reps=20),
+        "call_ms": timer.ms(fn, hold=False, reps=20),
+        **cs._kernel_ms(fn), "rel_err_dr_dk_dv_dw_du": errs}}
+
+
 def turn(src: str) -> dict:
     """One turn, in this process: the kernels of the checkout at ``src``."""
     sys.path.insert(0, src)
@@ -214,10 +253,13 @@ def turn(src: str) -> dict:
 def main() -> int:
     attention = "--attention" in sys.argv
     attention_bwd = "--attention-bwd" in sys.argv
+    scan_bwd = "--scan-bwd" in sys.argv
     archs = [sys.argv[i + 1] for i, a in enumerate(sys.argv)
              if a == "--arch"] or list(ATTENTION_ARCHS)
     if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
-        if attention_bwd:
+        if scan_bwd:
+            out = scan_bwd_turn(sys.argv[2])
+        elif attention_bwd:
             out = attention_bwd_turn(sys.argv[2])
         elif attention:
             out = attention_turn(sys.argv[2], archs)
@@ -235,7 +277,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_ab.py: CUDA is not available", file=sys.stderr)
         return 2
-    if attention_bwd:
+    if scan_bwd:
+        entries, flags = ["rwkv6-3b_train"], ["--scan-bwd"]
+    elif attention_bwd:
         sys.path.insert(0, str(HERE))
         import chip_smoke as cs
         entries = [arch for arch, _, _ in cs.TRAIN_KERNEL_SHAPES]

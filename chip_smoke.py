@@ -54,10 +54,11 @@ just after:
   * training rwkv6-3b through ``launch.train.train`` at its full
     published configuration (32 layers, 3.17B parameters, 4 x 2,048
     tokens a step in four 1-row microbatches, 6 steps), whose scan's
-    backward is the ``rwkv6_scan_bwd`` kernel, held first to its plain
-    version (training's shape, a ragged T, one chunk, a state with a
-    final-state cotangent, the decay floor, fp32, rows off 16 bytes, K 16
-    to 64 and V 32 to 256), and
+    backward is the ``rwkv6_scan_bwd`` kernel (every launch on its
+    tensor-core body), held first to its plain version on both bodies
+    (training's shape, a ragged T, one chunk, T 16 and 1, a state with a
+    final-state cotangent, the decay floor across a chunk and a sub-chunk
+    boundary, fp32, rows off 16 bytes, K 16 to 64 and V 16 to 256), and
     a first step's gradients to the plain scan's at 2 layers;
   * one ``CobraSession.plan_step`` report of the step planner under the
     port's default hardware table (one H100 SXM), on the host.
@@ -162,12 +163,17 @@ TRAIN_RWKV_STEPS = 6
 # each trained family's kernels, by ``ArchConfig.family``, one launch a
 # layer a step each: (forward, backward, the ops entry the layer calls, its
 # plain version in ref, the body every backward launch must run: a key of
-# the backward's ``launches_by_body``, or None where it has one body)
+# the backward's ``launches_by_body``, and the pieces of kernel names a
+# traced training step must show: the forward and the backward's body)
 TRAIN_KERNELS = {
     "dense": ("flash_attention", "flash_attention_bwd", "attention",
-              "flash_attention_ref", "wgmma"),
+              "flash_attention_ref", "wgmma", ("flash_fwd", "flash_bwd_wg")),
     "ssm": ("rwkv6_scan", "rwkv6_scan_bwd", "rwkv_scan", "rwkv6_scan_ref",
-            None)}
+            "mma", ("rwkv6_fwd", "rwkv6_bwd_chunk_mma"))}
+# a profiler trace's warm-up step, in seconds before the calls it keeps,
+# and the traces tried before a reading is "not measured"
+TRACE_WARM_S = 0.25
+TRACE_TRIES = 3
 # the caching allocator's counters read around each training step: a
 # cudaMalloc (num_device_alloc) or a retry after freeing the cache
 # (num_alloc_retries) synchronizes, and shows in that step's wall
@@ -1693,30 +1699,47 @@ def phase_lm_train_kernel_parity() -> None:
 
 
 # rwkv6_scan_bwd against rwkv6_scan_bwd_ref: (label, B, H, T, K, V, type,
-# a given state and final-state cotangent, decay, rows off 16 bytes).
+# a given state and final-state cotangent, decay, rows off 16 bytes, the
+# body ``scan_bwd_body`` must pick: "mma" for bf16 at K 64 with V a
+# multiple of 16 up to 128 and aligned rows, "simt" otherwise).
 # decay None: the model's range, w_log = -exp(clamp(N(-1, 1.5), -12, 2));
 # "boundary": that, with the clamp's floor -e**2 on tokens 32..95 (across
-# the first chunk boundary); "floor": -e**2 everywhere
+# the first chunk boundary); "subchunk": the floor on tokens 8..23 (across
+# the mma body's first sub-chunk boundary); "floor": -e**2 everywhere
 SCAN_BWD_CASES = [
-    ("rwkv6-3b train", 1, 40, TRAIN_T, 64, 64, "bfloat16", False, None, False),
-    ("ragged T", 1, 40, 2000, 64, 64, "bfloat16", False, None, False),
-    ("one chunk", 1, 40, 64, 64, 64, "bfloat16", False, None, False),
-    ("short, one chunk", 2, 40, 37, 64, 64, "bfloat16", True, None, False),
-    ("state and cotangent", 2, 40, 300, 64, 64, "bfloat16", True, None, False),
+    ("rwkv6-3b train", 1, 40, TRAIN_T, 64, 64, "bfloat16", False, None, False,
+     "mma"),
+    ("ragged T", 1, 40, 2000, 64, 64, "bfloat16", False, None, False, "mma"),
+    ("one chunk", 1, 40, 64, 64, 64, "bfloat16", False, None, False, "mma"),
+    ("short, one chunk", 2, 40, 37, 64, 64, "bfloat16", True, None, False,
+     "mma"),
+    ("state and cotangent", 2, 40, 300, 64, 64, "bfloat16", True, None, False,
+     "mma"),
     ("floor across a boundary", 1, 40, 300, 64, 64, "bfloat16", True,
-     "boundary", False),
-    ("floor everywhere", 1, 40, 300, 64, 64, "float32", True, "floor", False),
-    ("fp32", 1, 40, TRAIN_T, 64, 64, "float32", False, None, False),
-    ("rows off 16 bytes", 1, 40, 2000, 64, 64, "bfloat16", True, None, True),
-    ("K 16, V 32", 2, 3, 200, 16, 32, "float32", True, None, False),
-    ("K 32, V 96", 1, 3, 200, 32, 96, "bfloat16", True, None, False),
+     "boundary", False, "mma"),
+    ("floor everywhere", 1, 40, 300, 64, 64, "float32", True, "floor", False,
+     "simt"),
+    ("fp32", 1, 40, TRAIN_T, 64, 64, "float32", False, None, False, "simt"),
+    ("rows off 16 bytes", 1, 40, 2000, 64, 64, "bfloat16", True, None, True,
+     "simt"),
+    ("K 16, V 32", 2, 3, 200, 16, 32, "float32", True, None, False, "simt"),
+    ("K 32, V 96", 1, 3, 200, 32, 96, "bfloat16", True, None, False, "simt"),
     # the widest values: 3 and 4 warps a state row in the row pass (192
     # and 256 threads), its shared memory near the card's 227 KB at V 256
-    ("K 64, V 160", 1, 3, 200, 64, 160, "bfloat16", True, None, False),
-    ("K 64, V 256", 1, 3, 200, 64, 256, "bfloat16", True, None, False),
+    ("K 64, V 160", 1, 3, 200, 64, 160, "bfloat16", True, None, False, "simt"),
+    ("K 64, V 256", 1, 3, 200, 64, 256, "bfloat16", True, None, False, "simt"),
     ("K 64, V 256, fp32", 1, 2, 130, 64, 256, "float32", True, "boundary",
-     False),
-    ("K 16, V 256", 2, 3, 200, 16, 256, "float32", True, None, False),
+     False, "simt"),
+    ("K 16, V 256", 2, 3, 200, 16, 256, "float32", True, None, False, "simt"),
+    # the mma body's edges: its narrowest and widest V (its shared memory
+    # 204 KB at V 128), one token, one sub-chunk, the floor across a
+    # sub-chunk boundary
+    ("mma, V 16", 2, 3, 200, 64, 16, "bfloat16", True, None, False, "mma"),
+    ("mma, V 128", 1, 3, 200, 64, 128, "bfloat16", True, None, False, "mma"),
+    ("mma, T 1", 2, 40, 1, 64, 64, "bfloat16", True, None, False, "mma"),
+    ("mma, T 16", 2, 40, 16, 64, 64, "bfloat16", True, None, False, "mma"),
+    ("floor across a sub-chunk boundary", 1, 40, 300, 64, 64, "bfloat16",
+     True, "subchunk", False, "mma"),
 ]
 
 
@@ -1730,6 +1753,8 @@ def _scan_inputs(B, H, T, K, V, dtype, with_state, decay, seed):
     w = -torch.exp(torch.clamp(n(B, H, T, K) * 1.5 - 1.0, -12.0, 2.0))
     if decay == "boundary":
         w[:, :, 32:96] = -math.exp(2.0)
+    elif decay == "subchunk":
+        w[:, :, 8:24] = -math.exp(2.0)
     elif decay == "floor":
         w.fill_(-math.exp(2.0))
     u = n(H, K) * 0.3
@@ -1746,7 +1771,8 @@ def _scan_bwd_parity() -> list:
     their peak (BWD_TOL_FP32 of it for fp32 inputs), dw, du and dstate
     within BWD_TOL_FP32 of theirs. A witness reads the rounding scale:
     autograd through rwkv6_scan_ref with the inputs' types, against the same
-    fp32 gradients. A second call must give the same bits."""
+    fp32 gradients. A second call must give the same bits, and both calls
+    must run the case's body (``launches_by_body``)."""
     import importlib
 
     import torch
@@ -1755,14 +1781,18 @@ def _scan_bwd_parity() -> list:
     names = ("dr", "dk", "dv", "dw", "du", "dstate")
     cases = []
     for i, (label, B, H, T, K, V, dtype, with_state, decay,
-            offset) in enumerate(SCAN_BWD_CASES):
+            offset, expect) in enumerate(SCAN_BWD_CASES):
         r, k, v, w, u, state, dy, ds_out = _scan_inputs(
             B, H, T, K, V, dtype, with_state, decay, seed=300 + i)
         _, _, L, D = rs._forward(r, k, v, w, u, state)
         if offset:
             r, k, v, w, dy = (_off16(x) for x in (r, k, v, w, dy))
+        before = dict(rs.rwkv6_scan_bwd.launches_by_body)
         got = rs.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_out, L, D)
         again = rs.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_out, L, D)
+        ran = {b: n - before[b]
+               for b, n in rs.rwkv6_scan_bwd.launches_by_body.items()
+               if n != before[b]}
         want = ref.rwkv6_scan_bwd_ref(r.float(), k.float(), v.float(), w, u,
                                       state, dy.float(), ds_out)
         # the witness: autograd through the plain scan, the inputs' types
@@ -1787,8 +1817,10 @@ def _scan_bwd_parity() -> list:
         cases.append({"case": label, "shape": shape, "type": dtype,
                       "state_and_cotangent": with_state, "decay": decay,
                       "rows_off_16_bytes": offset, "chunks": rs.n_chunks(T),
-                      "rel_err": errs, "witness_rel_err": witness,
+                      "body": ran, "rel_err": errs, "witness_rel_err": witness,
                       "grad_types": types, "bit_identical_second_call": same})
+        check(ran == {expect: 2}, f"rwkv6_scan_bwd {label}: ran {ran}, not "
+              f"the {expect} body twice")
         check(finite, f"rwkv6_scan_bwd {label}: non-finite gradient")
         bad = {nm: e for (nm, e), tol in zip(errs.items(), tols) if not e <= tol}
         check(not bad, f"rwkv6_scan_bwd {label} {shape}: relative errors "
@@ -1926,7 +1958,7 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
     from repro_torch.launch import train as train_mod
     from repro_torch.models import get_arch, init_params
     arch = get_arch(arch_name)
-    fwd, bwd, entry, plain, body = TRAIN_KERNELS[arch.family]
+    fwd, bwd, entry, plain, body, traced_names = TRAIN_KERNELS[arch.family]
     bodies = lambda: dict(getattr(ops, bwd).launches_by_body)  # noqa: E731
     walls, traced = [], {}   # untraced steps' walls; the traced step's
     allocs = []              # the caching allocator's counters, each step
@@ -1950,8 +1982,9 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
 
         def timed(*args):
             if len(walls) == TRAIN_TRACE_STEP and not traced:
-                (out, wall), busy, split = _device_busy(lambda: fn(*args),
-                                                        split=True)
+                (out, wall), busy, split = _device_busy(
+                    lambda: fn(*args), split=True,
+                    expect=traced_names)
                 traced.update(wall_ms=wall * 1e3, device_busy_ms=busy,
                               idle_share=None if busy is None
                               else max(0.0, 1.0 - busy / (wall * 1e3)),
@@ -1978,7 +2011,7 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
         sync()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
-        by_body = bodies() if body else None
+        by_body = bodies()
     finally:
         train_mod.make_train_step = make
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2008,14 +2041,13 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
             "allocator_by_step": allocs,
             "traced_step": {"index": TRAIN_TRACE_STEP, **traced},
             "peak_memory_gb": peak_gb, "losses": losses,
-            "launches": launches, "launches_per_step": per_step}
-    if body:
-        line["backward_launches_by_body"] = by_body
+            "launches": launches, "launches_per_step": per_step,
+            "backward_launches_by_body": by_body}
     check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
     check(per_step[fwd] == per_step[bwd] == arch.n_layers * microbatch,
           f"train: {per_step} launches a step, not one forward and one "
           f"backward a layer ({arch.n_layers}) and microbatch ({microbatch})")
-    check(not body or by_body[body] == launches[bwd],
+    check(by_body[body] == launches[bwd],
           f"train: the backward ran {by_body}, not the {body} body every "
           f"time")
     check(min(losses[2:]) < losses[0] - 0.05,
@@ -2033,7 +2065,7 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
     ops.reset_launch_counts()
     loss_k, g_kernel = _first_step_grads(small, params, batch)
     grad_launches = ops.launch_counts()
-    grad_bodies = bodies() if body else None
+    grad_bodies = bodies()
     kernel_entry = getattr(ops, entry)
     setattr(ops, entry, getattr(ref, plain))
     try:
@@ -2056,9 +2088,8 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
         "kernel_vs_plain_rel_l2": err,
         "plain_bf16_vs_fp32_rel_l2": witness,
         "limit": f"per leaf max({GRAD_REL_L2_FLOOR}, 2 x the plain "
-                 f"version's bf16-vs-fp32 error)"}
-    if body:
-        line["grad_check"]["backward_launches_by_body"] = grad_bodies
+                 f"version's bf16-vs-fp32 error)",
+        "backward_launches_by_body": grad_bodies}
     del g_plain, g_fp32
     torch.cuda.empty_cache()
     try:
@@ -2066,9 +2097,9 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
                                              loss_k)
     finally:
         emit(line)
-    check(grad_launches[bwd] == 2 and (not body or grad_bodies[body] == 2),
+    check(grad_launches[bwd] == 2 and grad_bodies[body] == 2,
           f"grad check: {grad_launches}, {grad_bodies} (one backward a "
-          f"layer" + (f", on the {body} body)" if body else ")"))
+          f"layer, on the {body} body)")
     check(not bad, f"train: gradients off the plain {entry}'s: {bad}")
     del params, g_kernel, batch
     torch.cuda.empty_cache()
@@ -2274,18 +2305,42 @@ def train_kernel_entries(timer, launches: int) -> list:
     return entries
 
 
-# the scan's backward's kernels, one launch each a call: A' the chunks'
-# adjoints, B' the carry back over the chunks, C' the row pass, C'' the
-# value pass, D' du
-SCAN_BWD_KERNELS = ("rwkv6_bwd_chunk_adjoint", "rwkv6_bwd_chunk_carry",
-                    "rwkv6_bwd_rows", "rwkv6_bwd_values", "rwkv6_bwd_du")
+# the scan's backward's kernels by body, one launch each a call: A' the
+# chunks' adjoints, B' the carry back over the chunks, then the CUDA-core
+# body's C' row pass and C'' value pass, or the tensor-core body's chunk
+# products, and D' du
+SCAN_BWD_KERNELS = {
+    "simt": ("rwkv6_bwd_chunk_adjoint", "rwkv6_bwd_chunk_carry",
+             "rwkv6_bwd_rows", "rwkv6_bwd_values", "rwkv6_bwd_du"),
+    "mma": ("rwkv6_bwd_chunk_adjoint", "rwkv6_bwd_chunk_carry",
+            "rwkv6_bwd_chunk_mma", "rwkv6_bwd_du")}
+
+
+def scan_bwd_flops(B, H, T, K, V) -> tuple:
+    """The mma body's operations at a call, (on the tensor cores, on the
+    CUDA cores): per chunk of 64 tokens (four sub-chunks of 16), each
+    product counted once (not its bf16 hi/lo passes): Q's 10 tiles on or
+    below the diagonal, X1, X2 and X3 (L_c dy, G_C v, K G_C), and the 6
+    off-diagonal tiles of X, Y, P^T and P^T dY; on the CUDA cores the 4
+    diagonal tiles' 120 pairs (an exponent and 7 operations a pair and
+    column of K, 2 a pair and column of V), the tables (4 a row of the 192
+    and column), the epilogues (16 a token and column of K, 4 of V), and
+    the adjoint of phase A' (2 a token, k and v)."""
+    chunks = B * H * -(-T // 64)
+    tile = 2 * 16 * 16
+    tensor = chunks * (10 * tile * V + 3 * 2 * 64 * K * V
+                       + 6 * tile * (3 * K + V))
+    cores = chunks * (4 * 120 * (8 * K + 2 * V) + 192 * 4 * K
+                      + 64 * (16 * K + 4 * V)) + B * H * T * 2 * K * V
+    return tensor, cores
 
 
 def scan_bwd_kernel_entry(timer) -> dict:
     """rwkv6_scan_bwd at rwkv6-3b's training call (1 x TRAIN_T, H 40, K =
     V = 64, bf16 r/k/v/dy, no state), seeded inputs and the forward
-    kernel's chunk states and decays: the kernel against its plain version
-    and the backward of autograd through the plain scan. The caller adds
+    kernel's chunk states and decays: the kernel (its tensor-core body,
+    as the training path runs it) against its plain version and the
+    backward of autograd through the plain scan. The caller adds
     ``launches``, the kernel's count on the training path."""
     import importlib
 
@@ -2301,7 +2356,10 @@ def scan_bwd_kernel_entry(timer) -> dict:
     _, _, L, D = rs._forward(r, k, v, w, u, None)
     fn = lambda: rs.rwkv6_scan_bwd(r, k, v, w, u, None, dy, None, L, D)  # noqa: E731
     plain = lambda: ref.rwkv6_scan_bwd_ref(r, k, v, w, u, None, dy, None)  # noqa: E731
+    before = dict(rs.rwkv6_scan_bwd.launches_by_body)
     got = fn()
+    body = next(b for b, n in rs.rwkv6_scan_bwd.launches_by_body.items()
+                if n != before[b])
     want = ref.rwkv6_scan_bwd_ref(r.float(), k.float(), v.float(), w, u,
                                   None, dy.float(), None)
     err = max(float((g.float() - x).abs().max()) for g, x in zip(got, want))
@@ -2321,6 +2379,10 @@ def scan_bwd_kernel_entry(timer) -> dict:
     # per token and state element: S's recurrence (3), S.dy (2), G's
     # recurrence (3), G v (2), G^T k (2), S * G for dw (2)
     flops = B * H * T * (14 * K * V + 8 * K + 4 * V)
+    tensor, cores = scan_bwd_flops(B, H, T, K, V)
+    ops_tensor = tensor / BF16_TENSOR_OPS_PER_S + cores / FP32_OPS_PER_S
+    bound_tensor = max(nbytes / HBM_BYTES_PER_S, ops_tensor)
+    bound_fp32 = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S)
     autograd_plain_ms = timer.ms(plain_fb, reps=3) - timer.ms(plain_fwd, reps=3)
     entry = {
         "name": "rwkv6_scan_bwd", "route": "cuda",
@@ -2328,19 +2390,26 @@ def scan_bwd_kernel_entry(timer) -> dict:
         "replaces": "src/repro/models/layers.py:364 (no TPU kernel: the "
                     "reference trains through decay_linear_attention, which "
                     "XLA differentiates)",
+        "body": body,
         "max_abs_err": err,
         "ms": timer.ms(fn, reps=20),
         "call_ms": timer.ms(fn, hold=False, reps=20),
-        **_kernel_ms(fn, expect=SCAN_BWD_KERNELS),
+        **_kernel_ms(fn, expect=SCAN_BWD_KERNELS[body]),
         "plain_ms": timer.ms(plain, reps=3),
         "autograd_plain_ms": autograd_plain_ms,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S) * 1e3,
+        # the body that ran: the mma body's products at the bf16 tensor
+        # rate and the rest at the fp32 rate, or the token walk in fp32
+        "bound_ms": (bound_tensor if body == "mma" else bound_fp32) * 1e3,
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= flops / FP32_OPS_PER_S else "operations",
+        >= (ops_tensor if body == "mma" else flops / FP32_OPS_PER_S)
+        else "operations",
+        "bound_tensor_ms": bound_tensor * 1e3,
+        "bound_fp32_ms": bound_fp32 * 1e3,
         "library_ms": None,
         "shape": {"arch": TRAIN_RWKV_ARCH, "call": "train", "B": B, "H": H,
                   "T": T, "K": K, "V": V, "type": str(r.dtype),
                   "state": False, "chunks": nC, "flops": flops,
+                  "flops_tensor": tensor, "flops_cuda_cores": cores,
                   "bytes": nbytes}}
     del r, k, v, w, u, dy, L, D, leaves
     torch.cuda.empty_cache()
@@ -2377,7 +2446,8 @@ def _busy_union_ms(prof) -> float:
     however the trace nests them)."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep"))
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -2386,21 +2456,77 @@ def _busy_union_ms(prof) -> float:
     return busy_us / 1e3
 
 
-def _device_busy(fn, split: bool = False):
+def _warm_profiler() -> None:
+    """A stand-in workload for a profiler's warm-up step: small kernels on
+    the card for ``TRACE_WARM_S`` seconds, so the kernels the traced step
+    then launches first are not the ones a trace misses (PERF.md section
+    7)."""
+    import torch
+    x = torch.zeros(1024, device=DEVICE)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < TRACE_WARM_S:
+        for _ in range(64):
+            x.add_(1.0)
+        sync()
+
+
+def _kernel_name(name: str) -> str:
+    """A device event's name without its signature: ``void f<64>(...)``
+    reads ``f<64>``."""
+    import re
+    return re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", name)
+
+
+def _trace_whole(prof, calls: int, expect: tuple = ()):
+    """The one wholeness check of a ``torch.profiler`` trace of ``calls``
+    calls after a warm-up step (a trace can miss the kernels launched
+    first in it, late in a long process, whole calls): ``(counts,
+    faults)``, the trace's device events counted by ``_kernel_name`` (less
+    the profiler's ``ProfilerStep#`` markers, which take no device time),
+    and what keeps it from being whole: each piece of ``expect`` that no
+    name holds, and each name seen a count that is not a multiple of
+    ``calls`` (a call launches the same work each time). The trace is
+    whole where it has counts and no faults."""
+    from torch.autograd import DeviceType
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA \
+                and not e.name.startswith("ProfilerStep"):
+            name = _kernel_name(e.name)
+            counts[name] = counts.get(name, 0) + 1
+    faults = [f"missing {x}" for x in expect if not any(x in n for n in counts)]
+    faults += [f"{n} x{c}" for n, c in counts.items() if c % calls]
+    return counts, faults
+
+
+def _device_busy(fn, split: bool = False, expect: tuple = ()):
     """``((fn(), wall seconds), device busy ms)``: one call under a
     ``torch.profiler`` trace of the card's activity, ended by a
-    synchronize. Busy is None where the trace holds no device activity
-    ("not measured"). With ``split``, also the device time by kind of
-    activity (``_device_ms_by_kind``)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    synchronize, after a warm-up step of small kernels (``_warm_profiler``;
+    ``fn`` runs once, as its caller's state needs, so the trace is not
+    tried again). Busy is None where the trace holds no device activity or
+    is not whole by ``_trace_whole`` with ``expect`` ("not measured").
+    With ``split``, also the device time by kind of activity
+    (``_device_ms_by_kind``), which then lists what keeps the trace from
+    being whole under "faults"."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        _warm_profiler()
+        prof.step()
         t0 = time.perf_counter()
         out = fn()
         sync()
         wall = time.perf_counter() - t0
-    busy = _busy_union_ms(prof) or None
+        prof.step()
+    _, faults = _trace_whole(prof, 1, expect)
+    busy = None if faults else (_busy_union_ms(prof) or None)
     if split:
-        return (out, wall), busy, _device_ms_by_kind(prof)
+        by_kind = _device_ms_by_kind(prof)
+        if faults:
+            by_kind = {**(by_kind or {}), "faults": faults}
+        return (out, wall), busy, by_kind
     return (out, wall), busy
 
 
@@ -2424,7 +2550,7 @@ def _device_ms_by_kind(prof):
     from torch.autograd import DeviceType
     out, other = {}, {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.name.startswith("ProfilerStep"):
             continue
         name = e.name.lower()
         kind = next((k for k, piece in _KINDS if piece in name), "other")
@@ -2440,18 +2566,21 @@ def _device_ms_by_kind(prof):
     return split or None
 
 
-def _step_ms(fn, reps: int = 3):
+def _step_ms(fn, reps: int = 3, calls: int = 2):
     """One model step's wall time and the device's busy time within it.
 
     ``wall_ms``: host clock around the call and a synchronize (median of
     ``reps``), as a caller sees it. ``device_busy_ms``: the union of the
-    intervals in which a ``torch.profiler`` trace of one more call saw the
-    card run a kernel, copy or fill (counted once however the trace nests
-    them). The idle share is the part of the wall time the card ran
-    nothing. Where the trace holds no device activity, both are None ("not
-    measured")."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    intervals in which a ``torch.profiler`` trace of ``calls`` more calls
+    saw the card run a kernel, copy or fill (counted once however the
+    trace nests them), over ``calls``. As for ``_kernel_ms``, the
+    profiler's warm-up step runs ``fn`` for ``TRACE_WARM_S`` seconds, and
+    a trace is held only where ``_trace_whole`` finds it whole. After
+    ``TRACE_TRIES`` traces that are not, busy, the idle share and the
+    event count are None ("not measured") and ``trace_note`` gives the
+    last trace's faults. The idle share is the part of the wall time the
+    card ran nothing."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     sync()
     wall = []
@@ -2460,15 +2589,30 @@ def _step_ms(fn, reps: int = 3):
         fn()
         sync()
         wall.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
-    busy = _busy_union_ms(prof)
     w = statistics.median(wall)
-    return {"wall_ms": w, "device_busy_ms": busy or None,
-            "idle_share": max(0.0, 1.0 - busy / w) if busy else None,
-            "device_events": sum(1 for e in prof.events()
-                                 if e.device_type == DeviceType.CUDA)}
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < TRACE_WARM_S:
+                fn()
+            sync()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            sync()
+            prof.step()
+        counts, faults = _trace_whole(prof, calls)
+        busy = _busy_union_ms(prof) / calls
+        if counts and not faults and busy:
+            return {"wall_ms": w, "device_busy_ms": busy,
+                    "idle_share": max(0.0, 1.0 - busy / w),
+                    "device_events": sum(counts.values()) // calls}
+    return {"wall_ms": w, "device_busy_ms": None, "idle_share": None,
+            "device_events": None,
+            "trace_note": f"{TRACE_TRIES} traces of {calls} calls, none "
+                          f"whole: {faults[:8]} in the last"}
 
 
 def _cast(tree, dtype):
@@ -2538,32 +2682,24 @@ class _Timer:
         return statistics.median(times)
 
 
-def _kernel_ms(fn, reps: int = 5, expect: tuple = (), tries: int = 3,
-               warm_s: float = 0.25) -> dict:
+def _kernel_ms(fn, reps: int = 5, expect: tuple = ()) -> dict:
     """``{"kernel_ms": {name: ms}}``: device time per call of each kernel
-    that ``fn`` launches, by name, from a ``torch.profiler`` trace of
-    ``reps`` calls. A trace can miss the kernels launched first in it (late
-    in a long process, whole calls), so the profiler's warm-up step runs
-    ``fn`` for ``warm_s`` seconds before the ``reps`` calls it keeps, and a
-    trace is held only where it is whole: every kernel seen a multiple of
-    ``reps`` times (a call launches each a fixed number of times) and a
-    kernel seen under each name in ``expect`` (a prefix). After ``tries``
-    traces that are not, ``kernel_ms`` is None ("not measured") and
-    ``kernel_ms_note`` gives the last trace's counts."""
-    import re
-
-    from torch.autograd import DeviceType
+    that ``fn`` launches, by ``_kernel_name``, from a ``torch.profiler``
+    trace of ``reps`` calls. The profiler's warm-up step runs ``fn`` for
+    ``TRACE_WARM_S`` seconds before the ``reps`` calls it keeps, and a
+    trace is held only where ``_trace_whole`` finds it whole with
+    ``expect``. After ``TRACE_TRIES`` traces that are not, ``kernel_ms``
+    is None ("not measured") and ``kernel_ms_note`` gives the last
+    trace's counts and faults."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    clean = lambda k: re.sub(r"^void |\(anonymous namespace\)::|\(.*$",  # noqa: E731
-                             "", k)
     fn()
     sync()
-    for _ in range(tries):
+    for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             t0, n = time.perf_counter(), 0
-            while n < 3 or time.perf_counter() - t0 < warm_s:
+            while n < 3 or time.perf_counter() - t0 < TRACE_WARM_S:
                 fn()
                 n += 1
             sync()
@@ -2572,23 +2708,19 @@ def _kernel_ms(fn, reps: int = 5, expect: tuple = (), tries: int = 3,
                 fn()
             sync()
             prof.step()
-        counts, out = {}, {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                counts[clean(e.name)] = counts.get(clean(e.name), 0) + 1
+        counts, faults = _trace_whole(prof, reps, expect)
+        out = {}
         for e in prof.key_averages():
             if e.self_device_time_total > 0:
-                name = clean(e.key)
+                name = _kernel_name(e.key)
                 out[name] = (out.get(name, 0.0)
                              + e.self_device_time_total / reps / 1e3)
-        missing = [n for n in expect
-                   if not any(c.startswith(n) for c in counts)]
-        if out and not missing and not any(c % reps for c in counts.values()):
+        if out and not faults:
             return {"kernel_ms": out}
     return {"kernel_ms": None,
-            "kernel_ms_note": f"{tries} traces of {reps} calls, none whole: "
-                              f"device events by name in the last {counts}; "
-                              f"expected and missing {missing}"}
+            "kernel_ms_note": f"{TRACE_TRIES} traces of {reps} calls, none "
+                              f"whole: device events by name in the last "
+                              f"{counts}; faults {faults}"}
 
 
 def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):

@@ -68,9 +68,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's count (and ``flash_attention_bwd``'s counts by
+    """Zero every wrapper's count (and the backward kernels' counts by
     body)."""
     for fn in KERNELS.values():
         fn.launches = 0
-    flash_attention_bwd.launches_by_body = dict.fromkeys(
-        flash_attention_bwd.launches_by_body, 0)
+    for fn in (flash_attention_bwd, rwkv6_scan_bwd):
+        fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)

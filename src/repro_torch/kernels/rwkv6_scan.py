@@ -24,7 +24,11 @@ kernel keeps its chunk states and decays for the backward kernel; under
 has r's type and is a (B, H, T, V) view of (B, T, H, V) memory, so the
 caller's transpose back needs no copy; the final state is a new fp32
 tensor. The gradients of r, k, v and w_log are such views too, dr/dk/dv in
-r's type, dw_log, du and the state's in fp32.
+r's type, dw_log, du and the state's in fp32. The backward has two bodies,
+picked by :func:`scan_bwd_body` from the shapes, the type and the rows'
+alignment: "mma", each chunk as matrix products on the tensor cores (bf16,
+K 64, V a multiple of 16 up to 128: the training call), and "simt", the
+token walk on the CUDA cores (everything else).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch
 
 from . import build, ref
 
-__all__ = ["rwkv6_scan", "rwkv6_scan_bwd"]
+__all__ = ["rwkv6_scan", "rwkv6_scan_bwd", "scan_bwd_body"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,12 +60,16 @@ _BWD_SIGNATURES = {
         _P, _P, _P, _P, _P, _P,                  # dr, dk, dv, dw, du, dstate
         _I, _I, _I, _I, _I,                      # B, H, T, K, V
         *(_STRIDES,) * 9,                        # r k v w dy dr dk dv dw
-        _I, _P),                                 # dtype, stream
+        _I, _I, _P),                             # dtype, body, stream
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KS = (16, 32, 64)
 _MAX_V = 256
 CHUNK_LEN = 64      # tokens per chunk (kChunkLen in both kernels)
+# the backward's bodies, by their code in cobra_rwkv6_scan_bwd
+BWD_BODIES = {"simt": 0, "mma": 1}
+_MMA_K = 64         # the mma body's K, and its V: multiples of 16 up to 128
+_MMA_MAX_V = 128
 
 
 def n_chunks(T: int) -> int:
@@ -190,6 +198,24 @@ def _forward(r, k, v, w_log, u, state):
 rwkv6_scan.launches = 0
 
 
+def scan_bwd_body(K: int, V: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The backward kernel's body for state width ``K`` x ``V``, r's type
+    and whether r's, k's, v's, w_log's and dy's rows (``build.rows16``)
+    and the state's base are 16-byte aligned: "mma" (the chunk as matrix
+    products on the tensor cores) for bf16 at K 64 with V a multiple of 16
+    up to 128 and aligned rows, "simt" (the token walk on the CUDA cores)
+    for everything else the kernel takes."""
+    if K not in _KS or not 0 < V <= _MAX_V:
+        raise ValueError(f"rwkv6_scan_bwd: K = {K}, V = {V}; the kernel "
+                         f"takes K in {_KS} and V <= {_MAX_V}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"rwkv6_scan_bwd: unsupported type {dtype}")
+    if dtype == torch.bfloat16 and aligned and K == _MMA_K \
+            and V % 16 == 0 and V <= _MMA_MAX_V:
+        return "mma"
+    return "simt"
+
+
 def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w_log: torch.Tensor, u: torch.Tensor,
                    state: Optional[torch.Tensor], dy: torch.Tensor,
@@ -202,9 +228,11 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensor launches the kernel (and bumps ``rwkv6_scan_bwd.launches``)
     and needs, when T > :data:`CHUNK_LEN`, the chunk states and decays the
     forward kernel left (:func:`_forward`); a CPU tensor takes
-    :func:`.ref.rwkv6_scan_bwd_ref`. dr, dk and dv come in r's type, each a
-    (B, H, T, ·) view of (B, T, H, ·) memory as dw_log is; dw_log, du (H,
-    K) and dstate in fp32."""
+    :func:`.ref.rwkv6_scan_bwd_ref`. The body is :func:`scan_bwd_body`'s,
+    and a launch also bumps its count in
+    ``rwkv6_scan_bwd.launches_by_body``. dr, dk and dv come in r's type,
+    each a (B, H, T, ·) view of (B, T, H, ·) memory as dw_log is; dw_log,
+    du (H, K) and dstate in fp32."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan_bwd_ref(r, k, v, w_log, u, state, dy, ds_out)
     if r.device.type != "cuda":
@@ -231,7 +259,25 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise ValueError(f"rwkv6_scan_bwd: {name} must be the "
                                  f"forward kernel's, contiguous float32 "
                                  f"{shape}")
+    aligned = all(build.rows16(t) for t in (r, k, v, w_log, dy)) \
+        and (state is None or build.aligned16(state))
+    return launch_bwd(_bwd_lib(), r, k, v, w_log, u, state, dy, ds_out,
+                      chunk_states, chunk_decays,
+                      scan_bwd_body(K, V, r.dtype, aligned))
+
+
+def launch_bwd(lib, r, k, v, w_log, u, state, dy, ds_out, chunk_states,
+               chunk_decays, body: str):
+    """One launch of the backward through ``lib`` (a build of
+    ``csrc/rwkv6_scan_bwd.cu``) on checked inputs (``ds_out`` fp32 and
+    contiguous or None), with the given body: (dr, dk, dv, dw_log, du,
+    dstate). A launch bumps ``rwkv6_scan_bwd.launches`` and its body's
+    count in ``rwkv6_scan_bwd.launches_by_body``."""
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    nC = n_chunks(T)
     dev = r.device
+    mma = body == "mma"
 
     def grad(width, dtype):    # (B, T, H, width) memory seen as (B, H, T, width)
         return torch.empty((B, T, H, width), dtype=dtype,
@@ -242,24 +288,31 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     du = torch.empty((H, K), dtype=torch.float32, device=dev)
     dstate = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
     adjoints = torch.empty((B, H, nC, K, V), dtype=torch.float32, device=dev) \
-        if nC > 1 else None
+        if nC > 1 or mma else None
+    if nC == 1:    # the forward leaves none; the mma body's phase A' writes it
+        chunk_states = None
+        chunk_decays = torch.empty((B, H, 1, K), dtype=torch.float32,
+                                   device=dev) if mma else None
     du_part = torch.empty((B, H, nC, K), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _bwd_lib().cobra_rwkv6_scan_bwd(
+        err = lib.cobra_rwkv6_scan_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
             u.data_ptr(), 0 if state is None else state.data_ptr(),
             dy.data_ptr(), 0 if ds_out is None else ds_out.data_ptr(),
-            0 if nC == 1 else chunk_states.data_ptr(),
-            0 if nC == 1 else chunk_decays.data_ptr(),
+            0 if chunk_states is None else chunk_states.data_ptr(),
+            0 if chunk_decays is None else chunk_decays.data_ptr(),
             0 if adjoints is None else adjoints.data_ptr(),
             du_part.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dw.data_ptr(), du.data_ptr(), dstate.data_ptr(),
             B, H, T, K, V,
             *(_strides(t) for t in (r, k, v, w_log, dy, dr, dk, dv, dw)),
-            _DTYPES[r.dtype], torch.cuda.current_stream().cuda_stream)
+            _DTYPES[r.dtype], BWD_BODIES[body],
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "rwkv6_scan_bwd")
     rwkv6_scan_bwd.launches += 1
+    rwkv6_scan_bwd.launches_by_body[body] += 1
     return dr, dk, dv, dw, du, dstate
 
 
 rwkv6_scan_bwd.launches = 0
+rwkv6_scan_bwd.launches_by_body = dict.fromkeys(BWD_BODIES, 0)

@@ -773,8 +773,16 @@ def test_rwkv6_scan_extreme_decay_across_a_chunk_boundary(cuda):
 # the backward kernel against rwkv6_scan_bwd_ref in fp32: dr, dk, dv within
 # two bf16 roundings of their peak (1e-4 of it for fp32 inputs), dw, du and
 # dstate (fp32) within 1e-4 of theirs; decay "boundary" puts the model's
-# floor -e**2 on tokens 32..95, across the first chunk boundary
+# floor -e**2 on tokens 32..95, across the first chunk boundary, "subchunk"
+# on tokens 8..23, across the mma body's first sub-chunk boundary. Each
+# case also names the body it must run: the mma body for bf16 at K 64 with
+# V a multiple of 16 up to 128 and rows 16-byte aligned, simt otherwise
 SCAN_BWD_TOL = {"bfloat16": 2 * 2.0 ** -8, "float32": 1e-4}
+
+
+def _scan_bwd_body(K, V, dt, offset):
+    return "mma" if dt == "bfloat16" and K == 64 and V % 16 == 0 \
+        and V <= 128 and not offset else "simt"
 
 
 @pytest.mark.parametrize("B,H,T,K,V,dt,with_state,decay,offset", [
@@ -795,6 +803,13 @@ SCAN_BWD_TOL = {"bfloat16": 2 * 2.0 ** -8, "float32": 1e-4}
     (1, 2, 130, 64, 256, "float32", True, "boundary", False),
     (2, 3, 200, 16, 256, "float32", True, None, False),
     (1, 2, 300, 64, 256, "bfloat16", True, None, True),     # rows off 16 B
+    # the mma body's edges: its narrowest and widest V, one token, one
+    # sub-chunk, the floor across a sub-chunk boundary
+    (2, 3, 200, 64, 16, "bfloat16", True, None, False),
+    (1, 3, 200, 64, 128, "bfloat16", True, None, False),
+    (2, 3, 1, 64, 64, "bfloat16", True, None, False),
+    (2, 3, 16, 64, 64, "bfloat16", True, None, False),
+    (1, 2, 130, 64, 64, "bfloat16", True, "subchunk", False),
 ])
 def test_rwkv6_scan_backward_matches_plain(cuda, B, H, T, K, V, dt,
                                            with_state, decay, offset):
@@ -803,6 +818,8 @@ def test_rwkv6_scan_backward_matches_plain(cuda, B, H, T, K, V, dt,
                                     else None)
     if decay == "boundary":
         w[:, :, 32:96] = -np.exp(2.0)
+    elif decay == "subchunk":
+        w[:, :, 8:24] = -np.exp(2.0)
     rng = np.random.default_rng(T + V + 1)
     dy = rng.standard_normal((B, H, T, V))
     ds = rng.standard_normal((B, H, K, V))
@@ -818,6 +835,9 @@ def test_rwkv6_scan_backward_matches_plain(cuda, B, H, T, K, V, dt,
     got = rs.rwkv6_scan_bwd(*args, state, dy, ds_out, L, D)
     again = rs.rwkv6_scan_bwd(*args, state, dy, ds_out, L, D)
     assert ops.launch_counts()["rwkv6_scan_bwd"] == 2
+    body = _scan_bwd_body(K, V, dt, offset)
+    assert rs.rwkv6_scan_bwd.launches_by_body[body] == 2, \
+        rs.rwkv6_scan_bwd.launches_by_body
     want = ref.rwkv6_scan_bwd_ref(*(x.float() for x in args), state,
                                   dy.float(), ds_out)
     torch.cuda.synchronize()

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the RWKV6 scan's backward kernel, and with ``--ablate`` copies of
-it with parts of its row pass cut out, on one NVIDIA GPU.
+"""Time the RWKV6 scan's backward kernel's two bodies, and with
+``--ablate`` copies of it with parts of the CUDA-core body's row pass cut
+out, on one NVIDIA GPU.
 
     python3 tools/scan_bwd_variants.py [--rounds R] [--ablate]
 
@@ -12,20 +13,24 @@ three), with the flags of ``repro_torch.kernels.build``, one ``nvcc`` each,
 all started together, and prints each build's registers and spills.
 Then, at rwkv6-3b's training call (B 1 and B 2 rows of 2,048 tokens, H 40,
 K = V = 64, bf16 r/k/v/dy; seeded inputs and the forward kernel's chunk
-states), it holds the shipped source to the plain version in fp32 (dr,
-dk, dv within ``chip_smoke.BWD_TOL`` bf16 roundings of their peak, dw and
-du within ``chip_smoke.BWD_TOL_FP32``; a second call bit-identical) and
-times each build with ``chip_smoke.py``'s timer (CUDA events, L2 flushed
-before each launch, median), with the device time of each of its kernels
-(``torch.profiler``). The cut copies' results are wrong by design and are
-not checked; what a cut saves says how much of the pass that part holds
-up. Prints one JSON line per build, shape and round, the card's name and
-power limit, and exits non-zero if the shipped source disagrees with the
-plain version.
+states), it launches each build on both bodies, the tensor-core "mma"
+body the training call takes and the CUDA-core "simt" body
+(``rwkv6_scan.launch_bwd`` with the body named; with ``--ablate`` the simt
+body alone, whose row pass the cuts are in), holds the shipped source to
+the plain version in fp32 (dr, dk, dv within ``chip_smoke.BWD_TOL`` bf16
+roundings of their peak, dw and du within ``chip_smoke.BWD_TOL_FP32``; a
+second call bit-identical) and times each with ``chip_smoke.py``'s timer
+(CUDA events, L2 flushed before each launch, median), with the device
+time of each of its kernels (``torch.profiler``). The cut copies' results
+are wrong by design and are not checked; what a cut saves says how much
+of the pass that part holds up. Prints one JSON line per build, body,
+shape and round, the card's name and power limit, and exits non-zero if
+the shipped source disagrees with the plain version.
 """
 
 import ctypes
 import importlib
+import itertools
 import json
 import re
 import subprocess
@@ -136,40 +141,37 @@ def main() -> int:
     a = get_arch(cs.TRAIN_RWKV_ARCH)
     H, K = a.n_heads, a.d_model // a.n_heads
     timer = cs._Timer()
-    kernel_lib = rs._bwd_lib
     failed = []
     tols = (cs.BWD_TOL * 2.0 ** -8,) * 3 + (cs.BWD_TOL_FP32,) * 3
-    try:
-        for r in range(rounds):
-            for B in BATCHES:
-                r_, k_, v_, w_, u_, _, dy, _ = cs._scan_inputs(
-                    B, H, cs.TRAIN_T, K, K, "bfloat16", False, None, seed=7)
-                _, _, L, D = rs._forward(r_, k_, v_, w_, u_, None)
-                want = ref.rwkv6_scan_bwd_ref(r_.float(), k_.float(),
-                                              v_.float(), w_, u_, None,
-                                              dy.float(), None)
-                fn = lambda: rs.rwkv6_scan_bwd(  # noqa: E731
-                    r_, k_, v_, w_, u_, None, dy, None, L, D)
-                for name, lib in libs.items():
-                    rs._bwd_lib = lambda lib=lib: lib
-                    got, again = fn(), fn()
-                    cs.sync()
-                    errs = [cs._rel_peak(g, w) for g, w in zip(got, want)]
-                    same = all(torch.equal(x, y) for x, y in zip(got, again))
-                    ok = same and all(e <= t for e, t in zip(errs[:5], tols))
-                    if not ok and name in ("shipped", "ablate_shipped"):
-                        failed.append((name, B))
-                    del got, again
-                    print(json.dumps({
-                        "round": r, "variant": name, "B": B,
-                        "ms": timer.ms(fn, reps=20),
-                        **cs._kernel_ms(fn, expect=cs.SCAN_BWD_KERNELS),
-                        "rel_err_dr_dk_dv_dw_du": errs[:5],
-                        "bit_identical_second_call": same}), flush=True)
-                del r_, k_, v_, w_, u_, dy, L, D, want
-                torch.cuda.empty_cache()
-    finally:
-        rs._bwd_lib = kernel_lib
+    bodies = ("simt",) if ablate else tuple(rs.BWD_BODIES)
+    for r in range(rounds):
+        for B in BATCHES:
+            r_, k_, v_, w_, u_, _, dy, _ = cs._scan_inputs(
+                B, H, cs.TRAIN_T, K, K, "bfloat16", False, None, seed=7)
+            _, _, L, D = rs._forward(r_, k_, v_, w_, u_, None)
+            want = ref.rwkv6_scan_bwd_ref(r_.float(), k_.float(),
+                                          v_.float(), w_, u_, None,
+                                          dy.float(), None)
+            for (name, lib), body in itertools.product(libs.items(),
+                                                       bodies):
+                fn = lambda lib=lib, body=body: rs.launch_bwd(  # noqa: E731
+                    lib, r_, k_, v_, w_, u_, None, dy, None, L, D, body)
+                got, again = fn(), fn()
+                cs.sync()
+                errs = [cs._rel_peak(g, w) for g, w in zip(got, want)]
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                ok = same and all(e <= t for e, t in zip(errs[:5], tols))
+                if not ok and name in ("shipped", "ablate_shipped"):
+                    failed.append((name, body, B))
+                del got, again
+                print(json.dumps({
+                    "round": r, "variant": name, "body": body, "B": B,
+                    "ms": timer.ms(fn, reps=20),
+                    **cs._kernel_ms(fn, expect=cs.SCAN_BWD_KERNELS[body]),
+                    "rel_err_dr_dk_dv_dw_du": errs[:5],
+                    "bit_identical_second_call": same}), flush=True)
+            del r_, k_, v_, w_, u_, dy, L, D, want
+            torch.cuda.empty_cache()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
