@@ -160,6 +160,11 @@ TRAIN_RWKV_ARCH = "rwkv6-3b"
 TRAIN_RWKV_BATCH = 4
 TRAIN_RWKV_MICROBATCH = 4
 TRAIN_RWKV_STEPS = 6
+# training under make_policy(1x1 mesh, "fsdp_tp", remat="full"): danube at
+# TRAIN_BATCH rows, rwkv6-3b at TRAIN_RWKV_BATCH rows at once (3 rows at once
+# ran out of memory without remat); the steps of each
+TRAIN_REMAT_STEPS = 3
+TRAIN_REMAT_RWKV_TOL = 1e-3   # its first loss against the 1-row microbatches'
 # each trained family's kernels, by ``ArchConfig.family``, one launch a
 # layer a step each: (forward, backward, the ops entry the layer calls, its
 # plain version in ref, the body every backward launch must run: a key of
@@ -1949,7 +1954,8 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
     gradient check at the published width cut to 2 layers with batch 1: a
     first step's gradients with the kernels against the same step with the
     plain attention (or scan), leaf by leaf (relative L2), beside the plain
-    version's own bf16-vs-fp32 error. Returns the loop's launch counts."""
+    version's own bf16-vs-fp32 error. Returns the phase's line (the
+    loop's launch counts, losses, peak memory and step walls)."""
     import dataclasses
 
     import numpy as np
@@ -2103,7 +2109,115 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
     check(not bad, f"train: gradients off the plain {entry}'s: {bad}")
     del params, g_kernel, batch
     torch.cuda.empty_cache()
-    return launches
+    return line
+
+
+def phase_train_remat(arch_name: str, batch: int, unpolicied: dict):
+    """Training under a sharding policy with remat: a 1x1 mesh of the card
+    (``launch.mesh.card_group``, a one-rank NCCL group),
+    ``make_policy(mesh, strategy="fsdp_tp", remat="full")`` and
+    ``launch.specs.make_train_step``, the parameters, optimizer state and
+    batches DTensors placed by ``param_specs`` / ``batch_specs``: the
+    published configuration, ``batch`` x TRAIN_T tokens a step at once (no
+    microbatches), TRAIN_REMAT_STEPS steps of the ``SyntheticLM`` stream
+    from the seeds ``train`` uses. Launch counts from 0 just before the
+    steps and read just after: a step launches the forward kernel twice a
+    layer (forward, then the recompute) and the backward once, every
+    backward on its family's tensor-core body. Then ``_step_ms`` times and
+    traces more steps (busy and idle share). ``unpolicied`` is the line of
+    the same architecture's ``phase_train``: its first loss (same seed,
+    same first batch) and its peak memory and step walls sit beside this
+    phase's. Returns the line."""
+    import torch
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import card_group, make_mesh
+    from repro_torch.launch.sharding import (batch_specs, distribute_tree,
+                                             make_policy, param_specs)
+    from repro_torch.launch.specs import make_optimizer, make_train_step
+    from repro_torch.models import get_arch, init_params
+    arch = get_arch(arch_name)
+    fwd, bwd, _, _, body, _ = TRAIN_KERNELS[arch.family]
+    steps = TRAIN_REMAT_STEPS
+    source = SyntheticLM(PipelineConfig(global_batch=batch, seq_len=TRAIN_T,
+                                        vocab_size=arch.vocab_size, seed=0))
+
+    def alloc_counts():
+        st = torch.cuda.memory_stats()
+        return {k: st.get(k, 0) for k in ALLOC_COUNTERS}
+
+    torch.cuda.empty_cache()
+    with card_group():
+        mesh = make_mesh((1, 1), ("data", "model"))
+        policy = make_policy(mesh, strategy="fsdp_tp", remat="full")
+
+        def batch_at(i):
+            b = {k: torch.from_numpy(v.copy()).to(DEVICE)
+                 for k, v in source.batch(i).items()}
+            return distribute_tree(mesh, batch_specs(mesh, b), b)
+        params = init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                             arch)
+        params = distribute_tree(
+            mesh, param_specs(params, arch, mesh, "fsdp_tp"), params)
+        optimizer = make_optimizer(arch, total_steps=steps)
+        opt = optimizer.init(params)
+        step_fn = make_train_step(arch, policy, optimizer)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        walls, allocs, losses = [], [], []
+        ops.reset_launch_counts()
+        for i in range(steps):
+            b = batch_at(i)
+            sync()
+            before = alloc_counts()
+            t0 = time.perf_counter()
+            params, opt, _, metrics = step_fn(params, opt, i, b)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            after = alloc_counts()
+            allocs.append({k: after[k] - before[k] for k in after})
+            losses.append(float(metrics["loss"]))
+        launches = ops.launch_counts()
+        by_body = dict(getattr(ops, bwd).launches_by_body)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        traced = _step_ms(lambda: step_fn(params, opt, steps, b), reps=2,
+                          calls=1)
+        del params, opt, b, metrics
+    torch.cuda.empty_cache()
+    per_step = {k: launches[k] / steps for k in (fwd, bwd)}
+    tokens = batch * TRAIN_T
+    steady = statistics.median(walls[1:])
+    line = {"phase": f"train_remat_{arch_name}", "arch": arch_name,
+            "layers": arch.n_layers, "mesh": [1, 1],
+            "policy": policy.describe(), "steps": steps,
+            "global_batch": batch, "microbatch": 1, "seq_len": TRAIN_T,
+            "first_step_s": walls[0], "step_s": walls[1:],
+            "step_median_s": steady, "tokens_per_s": tokens / steady,
+            "traced_steps": traced, "allocator_by_step": allocs,
+            "peak_memory_gb": peak_gb, "losses": losses,
+            "launches": launches, "launches_per_step": per_step,
+            "backward_launches_by_body": by_body,
+            "unpolicied": {k: unpolicied[k] for k in (
+                "global_batch", "microbatch", "step_median_s",
+                "tokens_per_s", "peak_memory_gb")},
+            "unpolicied_first_loss": unpolicied["losses"][0],
+            "first_loss_rel_diff": abs(losses[0] - unpolicied["losses"][0])
+            / abs(unpolicied["losses"][0]),
+            "note": "peak_memory_gb: from after the parameters and optimizer "
+                    "state are placed, over the TRAIN_REMAT_STEPS steps; "
+                    "traced_steps: _step_ms over more steps of the same "
+                    "batch (wall median of 2, one traced); unpolicied: the "
+                    "same architecture's train_ phase in this run"}
+    emit(line)
+    check(all(math.isfinite(x) for x in losses), f"remat: losses {losses}")
+    check(per_step[fwd] == 2 * arch.n_layers and
+          per_step[bwd] == arch.n_layers,
+          f"remat: {per_step} launches a step, not two forwards (forward, "
+          f"recompute) and one backward a layer ({arch.n_layers})")
+    check(by_body[body] == launches[bwd],
+          f"remat: the backward ran {by_body}, not the {body} body every "
+          f"time")
+    return line
 
 
 def phase_train_resume(arch_name: str, root: Path) -> None:
@@ -3098,15 +3212,30 @@ def main() -> int:
     # training: the backward kernel's parity, then the loop, each with its
     # counts from 0 (inside phase_train)
     phase_lm_train_kernel_parity()
-    train_launches = phase_train(TRAIN_ARCH)
+    danube = phase_train(TRAIN_ARCH)
+    train_launches = danube["launches"]
     check(train_launches["flash_attention_bwd"] > 0,
           "flash_attention_bwd never launched on the training path")
     phase_train_resume(TRAIN_ARCH, root)
-    rwkv_launches = phase_train(TRAIN_RWKV_ARCH, batch=TRAIN_RWKV_BATCH,
-                                steps=TRAIN_RWKV_STEPS,
-                                microbatch=TRAIN_RWKV_MICROBATCH)
+    rwkv = phase_train(TRAIN_RWKV_ARCH, batch=TRAIN_RWKV_BATCH,
+                       steps=TRAIN_RWKV_STEPS,
+                       microbatch=TRAIN_RWKV_MICROBATCH)
+    rwkv_launches = rwkv["launches"]
     check(rwkv_launches["rwkv6_scan_bwd"] > 0,
           "rwkv6_scan_bwd never launched on the training path")
+    # the same two under a sharding policy with remat
+    remat = phase_train_remat(TRAIN_ARCH, TRAIN_BATCH, danube)
+    check(remat["losses"][0] == danube["losses"][0],
+          f"remat: first loss {remat['losses'][0]} != the unpolicied "
+          f"phase's {danube['losses'][0]} (same seed and batch)")
+    check(remat["peak_memory_gb"] < danube["peak_memory_gb"],
+          f"remat: peak {remat['peak_memory_gb']} GB not below the "
+          f"unpolicied phase's {danube['peak_memory_gb']} GB")
+    remat = phase_train_remat(TRAIN_RWKV_ARCH, TRAIN_RWKV_BATCH, rwkv)
+    check(remat["first_loss_rel_diff"] <= TRAIN_REMAT_RWKV_TOL,
+          f"remat: first loss {remat['losses'][0]} off the microbatched "
+          f"phase's {rwkv['losses'][0]} by more than "
+          f"{TRAIN_REMAT_RWKV_TOL} relative")
     phase_planner()
     timer = _Timer()
     entries += lm_kernel_entries(timer, attn, scan_launches, scan_shapes)

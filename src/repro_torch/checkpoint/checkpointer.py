@@ -24,9 +24,13 @@ Guarantees (the reference's):
     tree in place), then written on a background thread, off the step's
     critical path;
   * restore — arrays go onto each template leaf's device, in its type; a
-    shape that differs from the template's raises ``ValueError``. The
-    reference's re-sharding on restore (``shardings=``) waits for the
-    port's sharding (ROADMAP A3);
+    shape that differs from the template's raises ``ValueError``; with
+    ``shardings`` (a matching tree of ``launch.sharding.NamedSharding``)
+    each leaf is placed as a DTensor on the CURRENT mesh — elastic
+    re-sharding, as the reference's ``shardings=``;
+  * sharded trees — a DTensor leaf is saved whole (gathered on every
+    rank: call ``save`` on all of them); rank 0 of the process group
+    writes the files, the other ranks none;
   * retention — keep the last `keep` checkpoints.
 """
 
@@ -41,6 +45,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..carry import reference_leaves, restack, tensor_to_numpy
 
@@ -55,6 +61,8 @@ def _dtype_name(t) -> str:
 
 
 def _host(t) -> np.ndarray:
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     return tensor_to_numpy(t) if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
@@ -84,6 +92,8 @@ class Checkpointer:
         self.wait()  # one in-flight save at a time
         flat, dtypes = _flatten(tree)
         extras = dict(extras or {})
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
 
         def _write():
             tmp = tempfile.mkdtemp(dir=self.dir, prefix=".tmp_")
@@ -139,10 +149,12 @@ class Checkpointer:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, template: Dict[str, Any], step: Optional[int] = None
-                ) -> Tuple[int, Dict[str, Any], Dict]:
+    def restore(self, template: Dict[str, Any], step: Optional[int] = None,
+                shardings=None) -> Tuple[int, Dict[str, Any], Dict]:
         """Restore into the structure of `template` (a port tree): each
-        array on its template leaf's device, in its type."""
+        array on its template leaf's device, in its type; if `shardings`
+        (a matching tree of NamedShardings) is given, each is then placed
+        by its sharding under the CURRENT mesh."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -158,6 +170,8 @@ class Checkpointer:
         if missing:
             raise KeyError(f"checkpoint missing arrays: {missing[:5]} ...")
 
+        places = reference_leaves(shardings) if shardings is not None \
+            else {}
         restored = {}
         for path, (ts, stacked) in leaves.items():
             k = keys[path]
@@ -167,6 +181,9 @@ class Checkpointer:
                 raise ValueError(f"{k}: shape {arr.shape} != template {want}")
             put = lambda a, t: torch.from_numpy(np.ascontiguousarray(a)).to(  # noqa: E731
                 device=t.device, dtype=t.dtype)
-            restored[path] = [put(arr[i], t) for i, t in enumerate(ts)] \
-                if stacked else put(arr, ts[0])
+            out = [put(arr[i], t) for i, t in enumerate(ts)] if stacked \
+                else [put(arr, ts[0])]
+            if path in places:
+                out = [s.place(t) for s, t in zip(places[path][0], out)]
+            restored[path] = out if stacked else out[0]
         return step, restack(template, restored), extras

@@ -13,11 +13,24 @@ whenever no ``key_space`` is given). ``attention`` and ``rwkv_scan`` keep
 the reference's layouts, (B,H,T,hd) and (B,H,T,K/V); the reference's
 ``block_q``/``block_k`` (TPU tile shapes) and the scan's ``chunk`` are not
 arguments, since the CUDA kernels pick their own tiles.
+
+Under a mesh ``attention`` and ``rwkv_scan`` take DTensors and run the
+kernel (or its plain version, on the CPU) on each rank's local shard
+through ``local_map``: attention and the scan are independent per (row,
+head), so a shard of rows (batch) and of heads needs no collective. The
+shards kept are q's (r's) own on the batch and head dims, where they
+divide every input's count; any other placement (the sequence, under
+sequence parallelism; heads that do not divide the axis, as 8 KV heads on
+16 ranks) is gathered first. No kernel receives a DTensor.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Sequence, Tuple
+
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from . import ref
 from .flash_attention import flash_attention, flash_attention_bwd
@@ -27,7 +40,7 @@ from .segment_reduce import segment_reduce
 
 __all__ = ["segment_reduce", "equi_probe", "build_direct_table",
            "join_probe", "attention", "rwkv_scan", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+           "reset_launch_counts", "KERNELS", "fit_shards", "shard_start"]
 
 # every kernel wrapper with a launch count, by name
 KERNELS = {"join_probe": join_probe,
@@ -49,17 +62,73 @@ def equi_probe(probe_keys, table_keys, key_space: Optional[int] = None):
     return ref.join_probe_ref(probe_keys, table_keys)
 
 
+def fit_shards(x: DTensor, sizes: Dict[int, Sequence[int]]
+               ) -> Tuple[Placement, ...]:
+    """x's placements, each ``Shard(d)`` of a dim d in ``sizes`` kept while
+    the shards so far divide every size listed for d and ``Replicate()``
+    in its place otherwise (left to right, as DTensor nests the shards of
+    one dim); the other placements as they are."""
+    div = dict.fromkeys(sizes, 1)
+    out = []
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim in sizes:
+            n = div[p.dim] * x.device_mesh.size(i)
+            if all(c % n == 0 for c in sizes[p.dim]):
+                div[p.dim] = n
+            else:
+                p = Replicate()
+        out.append(p)
+    return tuple(out)
+
+
+def shard_start(x: DTensor, dim: int) -> int:
+    """The global index of this rank's first element of ``dim``, on which
+    x is sharded evenly (its shards nested left to right)."""
+    size, start = x.shape[dim], 0
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            size //= x.device_mesh.size(i)
+            start += x.device_mesh.get_local_rank(i) * size
+    return start
+
+
+def _row_head_shards(x: DTensor, heads: Sequence[int]
+                     ) -> Tuple[Placement, ...]:
+    """x's placements kept where they shard its batch (dim 0) evenly, or
+    its heads (dim 1) evenly for every head count in ``heads``;
+    ``Replicate()`` on every other mesh dim."""
+    fit = fit_shards(x, {0: (x.shape[0],), 1: tuple(heads)})
+    return tuple(p if isinstance(p, Shard) and p.dim in (0, 1)
+                 else Replicate() for p in fit)
+
+
 def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
               chunk: Optional[int] = None, scale: Optional[float] = None):
     """q (B,H,Tq,hd), k (B,KV,Tk,hd), v (B,KV,Tk,hdv) with hdv <= hd ->
     (B,H,Tq,hdv); queries at the tail."""
-    return flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
-                           scale=scale)
+    fn = functools.partial(flash_attention, causal=causal, window=window,
+                           chunk=chunk, scale=scale)
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    pl = _row_head_shards(q, (q.shape[1], k.shape[1]))
+    return local_map(fn, out_placements=(pl,), in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def rwkv_scan(r, k, v, w_log, u, state=None):
     """r/k/w_log (B,H,T,K), v (B,H,T,V), u (H,K) -> (y, final fp32 state)."""
-    return rwkv6_scan(r, k, v, w_log, u, state=state)
+    if not isinstance(r, DTensor):
+        return rwkv6_scan(r, k, v, w_log, u, state=state)
+    pl = _row_head_shards(r, (r.shape[1],))
+    u_pl = tuple(Shard(0) if p == Shard(1) else Replicate() for p in pl)
+    args, in_pl = [r, k, v, w_log, u], [pl, pl, pl, pl, u_pl]
+    if state is not None:
+        args.append(state)
+        in_pl.append(pl)
+    return local_map(rwkv6_scan, out_placements=(pl, pl),
+                     in_placements=tuple(in_pl), device_mesh=r.device_mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,13 +1,21 @@
-"""Launch layer: LM serving (``serve``), the training loop (``train``:
-``TrainConfig``, ``train``, ``main``) and its step builders (``specs``).
-Meshes, sharding policies and the dry-run are not ported yet (ROADMAP A3).
-The training modules load on first use, so ``python -m
-repro_torch.launch.train`` runs its module once."""
+"""Launch layer: meshes (``mesh``), sharding policies (``sharding``), LM
+serving (``serve``), the training loop (``train``: ``TrainConfig``,
+``train``, ``main``), its step builders and abstract inputs (``specs``),
+and the dry-run (``dryrun``).
+
+The dry-run is NOT imported here: it runs as ``python -m
+repro_torch.launch.dryrun``. The training modules load on first use, so
+``python -m repro_torch.launch.train`` runs its module once."""
 import importlib
 
 from . import serve
+from .mesh import make_mesh, make_production_mesh, mesh_info
+from .sharding import (STRATEGIES, MeshPolicy, batch_specs, make_policy,
+                       param_specs)
 
-__all__ = ["serve", "specs", "train", "TrainConfig"]
+__all__ = ["make_mesh", "make_production_mesh", "mesh_info", "MeshPolicy",
+           "STRATEGIES", "batch_specs", "make_policy", "param_specs",
+           "serve", "specs", "train", "TrainConfig"]
 
 
 def __getattr__(name):

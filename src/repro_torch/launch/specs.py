@@ -1,32 +1,60 @@
-"""Step builders: the optimizer and the train / prefill / decode steps.
+"""Abstract input specs for every (arch × shape) cell, and the step
+builders: the optimizer and the train / prefill / decode steps.
 
-The port of ``repro.launch.specs``, in part: ``make_optimizer``,
-``make_train_step`` and ``step_fn``. The reference's ``abstract_params``,
-``input_specs`` (abstract inputs carrying NamedShardings, which its
-dry-run lowers) and ``shape_kind`` need ``launch/sharding.py`` or serve
-the dry-run, and wait for the port's sharding (ROADMAP A3).
+The port of ``repro.launch.specs``. ``abstract_params`` gives meta tensors
+of the parameters' shapes and types (nothing is allocated);
+``input_specs`` places them, the optimizer state, the batch and the caches
+as meta DTensors by the spec functions of ``launch.sharding`` (the
+reference's ShapeDtypeStructs with NamedShardings), which the dry-run
+runs through ``step_fn``.
 
 A train step takes gradients with autograd: on the card the attention's
 backward is the ``flash_attention_bwd`` kernel and the RWKV6 scan's the
 ``rwkv6_scan_bwd`` kernel, on the CPU autograd through their plain
 versions. It updates ``params`` and the optimizer state IN
 PLACE and returns them (the reference's trainer donates both to its jit).
+Under a ``MeshPolicy`` the parameters, optimizer state and batch are
+DTensors; the loss is reduced before the backward and returned, with the
+gradient norm, as plain tensors.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Replicate
 
-from ..models import forward, loss_fn
+from ..configs import SHAPES
+from ..kernels import ops
+from ..models import forward, init_params, loss_fn, make_caches
 from ..models.arch import ArchConfig
 from ..models.layers import NULL_POLICY
+from ..models.model import dtensor_region
 from ..optim.optimizers import (Optimizer, adafactor, adamw,
                                 clip_by_global_norm, tree_leaves, tree_map,
                                 warmup_cosine)
+from .sharding import (MeshPolicy, batch_specs, cache_specs,
+                       distribute_tree, param_specs)
 
-__all__ = ["make_optimizer", "make_train_step", "step_fn"]
+__all__ = ["abstract_params", "make_optimizer", "input_specs", "step_fn",
+           "make_train_step", "shape_kind"]
+
+
+def shape_kind(shape_name: str) -> str:
+    return SHAPES[shape_name]["kind"]
+
+
+def abstract_params(cfg: ArchConfig):
+    """The parameter tree of ``cfg`` as meta tensors (shapes and types,
+    no storage). ``init_params`` runs unchanged under a fake-tensor mode,
+    drawing from a throwaway generator: nothing is drawn for real, and
+    every real draw stays as it is."""
+    with FakeTensorMode():
+        fake = init_params(torch.Generator().manual_seed(0), cfg)
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
 
 
 def make_optimizer(cfg: ArchConfig, total_steps: int = 10000) -> Optimizer:
@@ -36,6 +64,67 @@ def make_optimizer(cfg: ArchConfig, total_steps: int = 10000) -> Optimizer:
     if cfg.n_params() > 5e11:
         return adafactor(lr)
     return adamw(lr)
+
+
+def _batch_struct(cfg: ArchConfig, B: int, T: int, kind: str):
+    meta = lambda shape, dt=torch.int32: torch.empty(  # noqa: E731
+        shape, dtype=dt, device="meta")
+    b: Dict[str, Any] = {}
+    if kind == "train":
+        if cfg.enc_dec:
+            b["tokens"] = meta((B, T))
+            b["enc_embeds"] = meta((B, T, cfg.d_model), torch.bfloat16)
+        elif cfg.frontend:
+            b["embeds"] = meta((B, T, cfg.d_model), torch.bfloat16)
+        else:
+            b["tokens"] = meta((B, T))
+        b["labels"] = meta((B, T))
+        b["positions"] = meta((B, T))
+    elif kind == "prefill":
+        if cfg.enc_dec or cfg.frontend:
+            b["embeds"] = meta((B, T, cfg.d_model), torch.bfloat16)
+        else:
+            b["tokens"] = meta((B, T))
+        b["positions"] = meta((B, T))
+    else:  # decode: one new token against a T-token cache
+        b["tokens"] = meta((B, 1))
+        b["positions"] = meta((B, 1))
+    return b
+
+
+def input_specs(cfg: ArchConfig, shape_name: str, policy: MeshPolicy,
+                optimizer: Optional[Optimizer] = None) -> Dict[str, Any]:
+    """The step's arguments for the cell, as meta DTensors placed by the
+    spec functions: ``params`` and ``batch``; with ``opt_state`` and
+    ``step`` (train), or ``caches`` and ``cache_index`` (decode). ``step``
+    and ``cache_index`` are ints (the step reads them on the host)."""
+    spec = SHAPES[shape_name]
+    B, T, kind = spec["global_batch"], spec["seq_len"], spec["kind"]
+    mesh = policy.mesh
+    seq_shard = policy.seq_shard
+
+    p_abs = abstract_params(cfg)
+    params = distribute_tree(
+        mesh, param_specs(p_abs, cfg, mesh, policy.strategy), p_abs)
+    batch = _batch_struct(cfg, B, T, kind)
+    batch = distribute_tree(mesh, batch_specs(
+        mesh, batch, seq_shard=seq_shard and kind != "decode"), batch)
+
+    if kind == "train":
+        if optimizer is None:
+            raise ValueError("input_specs: a train cell needs its optimizer")
+        o_abs = optimizer.init(p_abs)
+        opt = distribute_tree(
+            mesh, param_specs(o_abs, cfg, mesh, policy.strategy), o_abs)
+        return {"params": params, "opt_state": opt, "step": 0,
+                "batch": batch}
+    if kind == "prefill":
+        return {"params": params, "batch": batch}
+    caches = make_caches(cfg, B, T, device="meta")
+    caches = distribute_tree(
+        mesh, cache_specs(mesh, caches, seq_shard=seq_shard), caches)
+    return {"params": params, "caches": caches, "cache_index": 0,
+            "batch": batch}
 
 
 def step_fn(cfg: ArchConfig, kind: str, policy=NULL_POLICY,
@@ -72,9 +161,29 @@ def step_fn(cfg: ArchConfig, kind: str, policy=NULL_POLICY,
     return serve_step
 
 
+def _replicated(x):
+    """A DTensor made whole on every rank (its partial sums reduced)."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def _microbatch(v, i: int, nmb: int):
+    """Rows [i·m, (i+1)·m) of ``v``, m = B / nmb: the reference's i-th
+    microbatch (its reshape to (nmb, m, ...)). A DTensor's rows are
+    gathered by the slice and sharded again as ``v``'s, on the mesh dims
+    whose shards divide m (DTensor cannot reshape a sharded batch into
+    microbatches fewer than its shards)."""
+    m = v.shape[0] // nmb
+    if not isinstance(v, DTensor):
+        return v.reshape(nmb, m, *v.shape[1:])[i]
+    return v[i * m:(i + 1) * m].redistribute(
+        v.device_mesh, ops.fit_shards(v, {0: (m,)}))
+
+
 def _grads(params, leaves, cfg, batch, policy):
     """(loss, gradient of each leaf) of one batch."""
-    loss = loss_fn(params, cfg, batch, pol=policy)
+    loss = _replicated(loss_fn(params, cfg, batch, pol=policy))
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     return loss.detach(), grads
@@ -91,19 +200,21 @@ def make_train_step(cfg: ArchConfig, policy=NULL_POLICY,
 
     def train_step(params, opt_state, step, batch: Dict[str, torch.Tensor]):
         leaves = tree_leaves(params)
+        with dtensor_region(isinstance(leaves[0], DTensor)):
+            return _step(params, leaves, opt_state, step, batch)
+
+    def _step(params, leaves, opt_state, step, batch):
         for p in leaves:
             p.requires_grad_(True)
         try:
             if nmb == 1:
                 loss, grads = _grads(params, leaves, cfg, batch, policy)
             else:
-                acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device) for p in leaves]
+                acc = [torch.zeros_like(p, dtype=torch.float32)
+                       for p in leaves]
                 loss = 0.0
                 for i in range(nmb):
-                    mb = {k: v.reshape(nmb, v.shape[0] // nmb,
-                                       *v.shape[1:])[i]
-                          for k, v in batch.items()}
+                    mb = {k: _microbatch(v, i, nmb) for k, v in batch.items()}
                     li, gi = _grads(params, leaves, cfg, mb, policy)
                     for a, g in zip(acc, gi):
                         a.add_(g.float())
@@ -120,7 +231,9 @@ def make_train_step(cfg: ArchConfig, policy=NULL_POLICY,
         with torch.no_grad():
             for p, u in zip(leaves, tree_leaves(updates)):
                 p.copy_((p.float() + u.float()).to(p.dtype))
-        metrics = {"loss": loss, "grad_norm": gnorm}
+        metrics = {"loss": _replicated(loss), "grad_norm": _replicated(gnorm)}
+        metrics = {k: v.to_local() if isinstance(v, DTensor) else v
+                   for k, v in metrics.items()}
         return params, new_opt, step + 1, metrics
 
     return train_step

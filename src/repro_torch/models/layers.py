@@ -24,8 +24,13 @@ norms, ``w0``, ``u``, the router and Mamba2's ``dt_bias`` / ``A_log`` /
 ``repro_torch.carry.params_from_numpy`` carries the reference's parameters
 across instead).
 
-Sharding policies (ROADMAP A3) are not ported: :data:`NULL_POLICY` is the
-no-op the reference uses on one device.
+Sharding: every layer takes a policy ``pol`` and calls ``pol.cs(x, name)``
+at the reference's sites (a ``launch.sharding.MeshPolicy`` redistributes a
+DTensor there to the rule named ``name``); :data:`NULL_POLICY` is the no-op
+the reference uses on one device. Under a mesh the parameters and
+activations are DTensors: a view that splits a sharded dim into (heads,
+head dim) goes through :func:`split_heads`, and the kernels run on each
+rank's local shard (``kernels.ops``).
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels import ops
 from .arch import ArchConfig
@@ -52,8 +59,46 @@ class NullPolicy:
     def cs(self, x, name: str):
         return x
 
+    remat: str = "none"
+    use_kernels: bool = False
+
 
 NULL_POLICY = NullPolicy()
+
+
+def split_heads(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.view(*shape)``, a view that splits x's last dim into (heads,
+    head dim). DTensor cannot view a dim sharded over more ranks than the
+    heads divide (2 KV heads on a 4-way axis; XLA reshards such a view
+    silently), so a DTensor is first replicated on each mesh dim that would
+    split a head: the placement that ``_divisible`` allows after the view."""
+    if isinstance(x, DTensor):
+        pl = ops.fit_shards(x, {x.ndim - 1: (shape[-2],)})
+        if pl != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.view(*shape)
+
+
+def write_slots(cache: torch.Tensor, idx: int, x: torch.Tensor) -> None:
+    """``cache[:, idx:idx + T] = x`` in place: cache (B, S, ...), x (B, T,
+    ...). A DTensor cache whose slots are sharded (``cache_specs`` puts S on
+    the model axis) is written on each rank's own slots: DTensor cannot
+    write in place through a slice of a sharded dim."""
+    T = x.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, idx:idx + T].copy_(x)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    start = ops.shard_start(cache, 1)
+    x_pl = tuple(Replicate() if p.is_shard(1) or p.is_partial() else p
+                 for p in pl)
+
+    def write(c, xl):
+        lo, hi = max(idx, start), min(idx + T, start + c.shape[1])
+        if lo < hi:
+            c[:, lo - start:hi - start].copy_(xl[:, lo - idx:hi - idx])
+    local_map(write, out_placements=None, in_placements=(tuple(pl), x_pl),
+              device_mesh=mesh, redistribute_inputs=True)(cache, x)
 
 
 # --------------------------------------------------------------------------
@@ -220,9 +265,9 @@ def attention_gqa(params: Params, x: torch.Tensor, cfg: ArchConfig,
     streams (text tokens), as the reference does."""
     B, T, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ params["wq"]).view(B, T, H, hd)
-    k = (x @ params["wk"]).view(B, T, KV, hd)
-    v = (x @ params["wv"]).view(B, T, KV, hd)
+    q = pol.cs(split_heads(x @ params["wq"], B, T, H, hd), "act_bthd")
+    k = pol.cs(split_heads(x @ params["wk"], B, T, KV, hd), "act_btkd")
+    v = pol.cs(split_heads(x @ params["wv"], B, T, KV, hd), "act_btkd")
     if cfg.rope_kind == "mrope":
         secs = default_mrope_sections(hd)
         pos3 = positions if positions.ndim == 3 else \
@@ -234,14 +279,15 @@ def attention_gqa(params: Params, x: torch.Tensor, cfg: ArchConfig,
         k = apply_rope(k, positions)
     if cache is not None:
         idx = int(cache_index)
-        cache["k"][:, idx:idx + T].copy_(k)
-        cache["v"][:, idx:idx + T].copy_(v)
+        write_slots(cache["k"], idx, k)
+        write_slots(cache["v"], idx, v)
         k = cache["k"][:, :idx + T]
         v = cache["v"][:, :idx + T]
     out = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=True, window=cfg.window, chunk=cfg.chunk_size)
-    y = out.transpose(1, 2).reshape(B, T, H * hd) @ params["wo"]
-    return y, cache
+    out = pol.cs(out.transpose(1, 2), "act_bthd")
+    y = out.reshape(B, T, H * hd) @ params["wo"]
+    return pol.cs(y, "act_btd"), cache
 
 
 def attention_mla(params: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -264,7 +310,7 @@ def attention_mla(params: Params, x: torch.Tensor, cfg: ArchConfig,
     kvr = cfg.kv_lora_rank or d
 
     q_lat = rms_norm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps)
-    q = (q_lat @ params["wq_b"]).view(B, T, H, nope + rdim)
+    q = split_heads(q_lat @ params["wq_b"], B, T, H, nope + rdim)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions)
 
@@ -274,8 +320,8 @@ def attention_mla(params: Params, x: torch.Tensor, cfg: ArchConfig,
 
     if cache is not None:
         idx = int(cache_index)
-        cache["lat"][:, idx:idx + T].copy_(kv_lat)
-        cache["rope"][:, idx:idx + T].copy_(k_rope)
+        write_slots(cache["lat"], idx, kv_lat)
+        write_slots(cache["rope"], idx, k_rope)
         kv_lat = cache["lat"][:, :idx + T]
         k_rope = cache["rope"][:, :idx + T]
     Tk = kv_lat.shape[1]
@@ -283,7 +329,8 @@ def attention_mla(params: Params, x: torch.Tensor, cfg: ArchConfig,
     # in the type jnp promotes the pair to (the fp32 latent times bf16
     # weights is an fp32 product); torch refuses mixed-type products
     dt = torch.promote_types(kv_lat.dtype, params["wkv_b"].dtype)
-    kv = (kv_lat.to(dt) @ params["wkv_b"].to(dt)).view(B, Tk, H, nope + vhd)
+    kv = split_heads(kv_lat.to(dt) @ params["wkv_b"].to(dt),
+                     B, Tk, H, nope + vhd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_rope[:, :, None, :].to(k_nope.dtype)
                    .expand(B, Tk, H, rdim)], dim=-1)
@@ -293,7 +340,7 @@ def attention_mla(params: Params, x: torch.Tensor, cfg: ArchConfig,
                         chunk=cfg.chunk_size,
                         scale=1.0 / math.sqrt(nope + rdim))
     y = out.transpose(1, 2).reshape(B, T, H * vhd) @ params["wo"]
-    return y, cache
+    return pol.cs(y, "act_btd"), cache
 
 
 # --------------------------------------------------------------------------
@@ -306,10 +353,10 @@ def init_mlp(gen: torch.Generator, d: int, ff: int) -> Params:
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "silu", pol=NULL_POLICY):
-    gu = x @ params["w_in"]
+    gu = pol.cs(x @ params["w_in"], "act_btf2")
     g, u = torch.chunk(gu, 2, dim=-1)
     h = act_fn(act)(g.float()).to(x.dtype) * u
-    return h @ params["w_out"]
+    return pol.cs(h @ params["w_out"], "act_btd")
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig) -> Params:
@@ -368,40 +415,75 @@ def moe_dispatch(params: Params, xf: torch.Tensor, cfg: ArchConfig,
     return probs, gate_vals, flat_expert, keep, dst, cap
 
 
+def on_replicas(fn, *args):
+    """``fn(*args)``; with DTensor arguments, every rank runs ``fn`` on full
+    (gathered) copies and the tensors it returns are replicated DTensors.
+    For ops that DTensor has no sharding rules for (MoE routing's sorts,
+    searches, index writes and counts)."""
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+    if mesh is None:
+        return fn(*args)
+    rep = [Replicate()] * mesh.ndim
+    out = fn(*(a.redistribute(mesh, rep).to_local()
+               if isinstance(a, DTensor) else a for a in args))
+    wrap = lambda o: DTensor.from_local(  # noqa: E731
+        o, mesh, rep, run_check=False) if isinstance(o, torch.Tensor) else o
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
 def moe(params: Params, x: torch.Tensor, cfg: ArchConfig, pol=NULL_POLICY):
     """Top-k routing with capacity-based dispatch (:func:`moe_dispatch`):
     the kept assignments are scattered into an (E, cap, d) buffer, the
     experts run as two batched products, and each token gathers its
     outputs weighted by its renormalised gates; overflowing assignments
     are dropped (Switch-style). Adds the shared expert. Returns (y, the
-    Switch load-balance aux loss ``E * sum_e f_e p_e``)."""
+    Switch load-balance aux loss ``E * sum_e f_e p_e``). Under a mesh the
+    routing, the scatter and the gather run :func:`on_replicas`, the
+    expert products on the ``moe_ecd`` rule's shards."""
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = B * T
     xf = x.reshape(n, d)
-    probs, gate_vals, flat_expert, keep, dst, cap = moe_dispatch(params, xf,
-                                                                 cfg)
-    # every buffer row but the trash row (the last) is written at most once
-    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[dst] = xf.repeat_interleave(k, dim=0)
-    buf = buf[:-1].view(E, cap, d)
+    probs, gate_vals, flat_expert, keep, dst, cap = on_replicas(
+        lambda router, xf: moe_dispatch({"router": router}, xf, cfg),
+        params["router"], xf)
+
+    def scatter(xf, dst):
+        # every buffer row but the trash row (the last) is written at most
+        # once
+        buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+        buf[dst] = xf.repeat_interleave(k, dim=0)
+        return buf[:-1]
+    buf = pol.cs(on_replicas(scatter, xf, dst).view(E, cap, d), "moe_ecd")
 
     gu = torch.bmm(buf, params["w_in"])
     g, u = torch.chunk(gu, 2, dim=-1)
     h = act_fn(cfg.act)(g.float()).to(x.dtype) * u
-    out = torch.bmm(h, params["w_out"])
+    out = pol.cs(torch.bmm(h, params["w_out"]), "moe_ecd")
 
-    out_flat = torch.cat([out.reshape(E * cap, d),
-                          torch.zeros((1, d), dtype=out.dtype, device=x.device)])
-    w = (gate_vals.reshape(-1) * keep).to(x.dtype)
-    y = (out_flat[dst] * w[:, None]).view(n, k, d).sum(dim=1)
+    def combine(out, dst, gate_vals, keep):
+        out_flat = torch.cat([out.reshape(E * cap, d),
+                              torch.zeros((1, d), dtype=out.dtype,
+                                          device=x.device)])
+        w = (gate_vals.reshape(-1) * keep).to(x.dtype)
+        return (out_flat[dst] * w[:, None]).view(n, k, d).sum(dim=1)
+    y = on_replicas(combine, out, dst, gate_vals, keep)
     if cfg.n_shared_experts:
         y = y + mlp(params["shared"], xf, cfg.act)
 
     me = probs.mean(dim=0)
-    ce = torch.bincount(flat_expert, minlength=E).float() / (n * k)
+    # bincount(minlength=E) as a scatter-add (meta tensors have no
+    # bincount: its size depends on the data)
+    ce = on_replicas(lambda fe: torch.zeros(E, dtype=fe.dtype,
+                                            device=fe.device).scatter_add_(
+        0, fe, torch.ones_like(fe)), flat_expert).float() / (n * k)
     aux = E * torch.sum(me * ce)
-    return y.view(B, T, d), aux
+    if isinstance(y, DTensor):
+        # back to the tokens' own shards, which the view to (B, T, d) splits
+        # evenly (the shared expert's can shard n over more ranks than B)
+        y = y.redistribute(xf.device_mesh, xf.placements)
+    return pol.cs(y.view(B, T, d), "act_btd"), aux
 
 
 # --------------------------------------------------------------------------
@@ -545,14 +627,14 @@ def rwkv6_block(params: Params, x: torch.Tensor, cfg: ArchConfig,
     xv = x + delta * mix[2]
     xw = x + delta * mix[3]
     xg = x + delta * mix[4]
-    r = (xr @ params["wr"]).view(B, T, H, hd)
-    k = (xk @ params["wk"]).view(B, T, H, hd)
-    v = (xv @ params["wv"]).view(B, T, H, hd)
+    r = split_heads(xr @ params["wr"], B, T, H, hd)
+    k = split_heads(xk @ params["wk"], B, T, H, hd)
+    v = split_heads(xv @ params["wv"], B, T, H, hd)
     g = F.silu((xg @ params["wg"]).float())
     # data-dependent decay: w = exp(-exp(w0 + lora(xw)))  in (0, 1)
     dd = params["w0"] + (torch.tanh(xw.float() @ params["w_lora_a"].float())
                          @ params["w_lora_b"].float())
-    w_log = -torch.exp(torch.clamp(dd, -12.0, 2.0)).view(B, T, H, hd)
+    w_log = split_heads(-torch.exp(torch.clamp(dd, -12.0, 2.0)), B, T, H, hd)
 
     y, wkv = ops.rwkv_scan(r.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), w_log.transpose(1, 2),
@@ -573,7 +655,7 @@ def rwkv6_block(params: Params, x: torch.Tensor, cfg: ArchConfig,
     rr = torch.sigmoid((xr2 @ params["cm_r"]).float()).to(x.dtype)
     out = xc + rr * cm
     new_state = {"shift_t": x[:, -1, :], "shift_c": xc[:, -1, :], "wkv": wkv}
-    return out, new_state
+    return pol.cs(out, "act_btd"), new_state
 
 
 # --------------------------------------------------------------------------
@@ -611,7 +693,7 @@ def mamba2_block(params: Params, x: torch.Tensor, cfg: ArchConfig,
     dt = F.softplus(dt.float() + params["dt_bias"])            # (B,T,H)
     a = -torch.exp(params["A_log"])                            # (H,)
     w_log = dt * a                                             # (B,T,H) <= 0
-    xh = xs.reshape(B, T, H, P)
+    xh = split_heads(xs, B, T, H, P)
     r = Cm[:, None].expand(B, H, T, dn).to(x.dtype)
     k = Bm[:, None].expand(B, H, T, dn).to(x.dtype)
     v = (xh * dt[..., None].to(xh.dtype)).transpose(1, 2)
@@ -623,7 +705,7 @@ def mamba2_block(params: Params, x: torch.Tensor, cfg: ArchConfig,
              ).reshape(B, T, 2 * d)
     y = rms_norm(y, params["norm"], cfg.norm_eps) * \
         F.silu(z.float()).to(x.dtype)
-    return y @ params["w_out"], new_state
+    return pol.cs(y @ params["w_out"], "act_btd"), new_state
 
 
 # --------------------------------------------------------------------------
@@ -641,11 +723,40 @@ def embed(params: Params, tokens: torch.Tensor, pol=NULL_POLICY) -> torch.Tensor
     """The token rows of the table. ``F.embedding``, not ``index_select``:
     on CUDA the latter's backward adds rows with atomics, in another order
     each run, while the embedding backward sorts the tokens and sums each
-    row in a fixed order, so a training step is bit-identical run to run."""
-    return F.embedding(tokens.long(), params["tok"])
+    row in a fixed order, so a training step is bit-identical run to run.
+
+    A DTensor table is looked up on each rank's shard (:func:`_embed_shards`)."""
+    table = params["tok"]
+    if isinstance(table, DTensor):
+        return pol.cs(_embed_shards(tokens, table), "act_btd")
+    return pol.cs(F.embedding(tokens.long(), table), "act_btd")
+
+
+def _embed_shards(tokens, table: DTensor) -> DTensor:
+    """The lookup of (gathered) tokens in a table sharded on its rows (the
+    vocabulary) and columns: each rank looks up the tokens its rows hold
+    and zeroes the others, so the rows' mesh dims leave a partial sum (one
+    nonzero term a token, an exact sum). DTensor's own masked lookup loses
+    its mask when the result's gradient arrives as a plain partial sum."""
+    mesh, pl = table.device_mesh, table.placements
+    rep = [Replicate()] * mesh.ndim
+    if isinstance(tokens, DTensor):
+        tokens = tokens.redistribute(mesh, rep)
+    start = ops.shard_start(table, 0)
+    out_pl = tuple(Partial() if p.is_shard(0) else
+                   Shard(2) if p.is_shard(1) else Replicate() for p in pl)
+
+    def lookup(tok, rows_local):
+        idx = tok.long() - start
+        hit = (idx >= 0) & (idx < rows_local.shape[0])
+        y = F.embedding(idx.clamp(0, rows_local.shape[0] - 1), rows_local)
+        return y * hit[..., None].to(y.dtype)
+    return local_map(lookup, out_placements=(out_pl,),
+                     in_placements=(tuple(rep), tuple(pl)),
+                     device_mesh=mesh)(tokens, table)
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig,
             pol=NULL_POLICY) -> torch.Tensor:
     w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
-    return x @ w
+    return pol.cs(x @ w, "logits")

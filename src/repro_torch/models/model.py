@@ -31,24 +31,92 @@ labels -100 masked) and :func:`loss_fn` (the forward over a batch plus
 the weighted MoE aux loss), differentiated by autograd: on the card the
 attention's backward is the ``flash_attention_bwd`` kernel, on the CPU
 autograd through the plain attention.
+
+Remat (the reference's ``MeshPolicy.remat``, ``jax.checkpoint`` around
+each scanned layer): each layer's block of every stack runs under
+``torch.utils.checkpoint`` when the policy asks for it and grad is on.
+``full`` saves nothing inside the block and recomputes it in the
+backward; ``dots`` saves the products (``aten.mm``/``addmm``/``bmm``/
+``baddbmm``), ``dots_no_batch`` only the unbatched ``mm``/``addmm``. The
+hand-written kernels are not aten products, so under every mode their
+outputs are recomputed: a forward kernel launches twice a layer a step
+(forward, then recompute), its backward kernel once.
+
+Under a mesh the parameters and the batch are DTensors. Tensors the model
+makes itself (masks, ``aux``, token-shift and scan states, ``arange``
+positions) are plain; :func:`dtensor_region` lets DTensor treat them as
+replicated.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .arch import ArchConfig
 from .layers import (NULL_POLICY, apply_rope, attention_gqa, attention_mla,
                      embed, init_attention, init_embed, init_mamba2, init_mlp,
                      init_moe, init_rms, init_rwkv6, mamba2_block, mlp, moe,
-                     rms_norm, rwkv6_block, unembed)
+                     rms_norm, rwkv6_block, split_heads, unembed)
 from ..kernels import ops
 
-__all__ = ["init_params", "make_caches", "forward", "lm_loss", "loss_fn"]
+__all__ = ["init_params", "make_caches", "forward", "lm_loss", "loss_fn",
+           "dtensor_region", "REMAT_MODES"]
 
 Params = Dict[str, Any]
+
+_aten = torch.ops.aten
+# the ops each remat mode saves inside a block (none under "full")
+_REMAT_SAVES = {
+    "full": frozenset(),
+    "dots": frozenset({_aten.mm.default, _aten.addmm.default,
+                       _aten.bmm.default, _aten.baddbmm.default}),
+    "dots_no_batch": frozenset({_aten.mm.default, _aten.addmm.default}),
+}
+REMAT_MODES = ("none",) + tuple(_REMAT_SAVES)
+
+
+def _remat(pol, block, *args):
+    """``block(*args)`` under the policy's remat mode (with grad on)."""
+    mode = getattr(pol, "remat", "none")
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat {mode!r} not in {REMAT_MODES}")
+    if mode == "none" or not torch.is_grad_enabled():
+        return block(*args)
+    saves = _REMAT_SAVES[mode]
+    if not saves:
+        return checkpoint(block, *args, use_reentrant=False)
+
+    def policy(ctx, op, *a, **kw):
+        return CheckpointPolicy.MUST_SAVE if op in saves \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, policy))
+
+
+@contextlib.contextmanager
+def dtensor_region(on: bool):
+    """When ``on``, plain tensors meeting DTensors inside count as
+    replicated DTensors (the previous setting is restored on exit, so
+    regions nest)."""
+    if not on:
+        yield
+        return
+    disp = DTensor._op_dispatcher
+    prev = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = prev
 
 
 def _n_sites(cfg: ArchConfig) -> int:
@@ -176,6 +244,10 @@ def _moe_block(bp, h, cfg, positions, cache, idx, pol):
     return h + y, aux
 
 
+def _rwkv_layer(bp, h, cfg, state, pol):
+    return rwkv6_block(bp["rwkv"], h, cfg, state, pol)
+
+
 def _mamba_layer(bp, h, cfg, caches, l, pol):
     state = None if caches is None else caches["ssm"][l]
     y, new_state = mamba2_block(bp["mamba"], rms_norm(h, bp["ln1"],
@@ -202,10 +274,18 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
     ``caches`` the step writes its keys/values (or recurrent state) into
     them in place at ``cache_index`` and returns the same dictionary.
     aux_loss: the MoE layers' load-balance losses summed (0 elsewhere)."""
+    with dtensor_region(isinstance(inputs, DTensor)
+                        or isinstance(params["embed"]["tok"], DTensor)):
+        return _forward(params, cfg, inputs, positions, caches, cache_index,
+                        pol, enc_inputs)
+
+
+def _forward(params, cfg, inputs, positions, caches, cache_index, pol,
+             enc_inputs):
     if inputs.dtype in (torch.int32, torch.int64):
         h = embed(params["embed"], inputs, pol)
     else:
-        h = inputs.to(torch.bfloat16)
+        h = pol.cs(inputs.to(torch.bfloat16), "act_btd")
     idx = int(cache_index) if cache_index is not None else 0
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
@@ -217,7 +297,7 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
     elif cfg.ssm_kind == "rwkv6":
         for l, bp in enumerate(params["layers"]):
             state = _layer_cache(caches, l, ("shift_t", "shift_c", "wkv"))
-            h, new_state = rwkv6_block(bp["rwkv"], h, cfg, state, pol)
+            h, new_state = _remat(pol, _rwkv_layer, bp, h, cfg, state, pol)
             if caches is not None:
                 for name, value in new_state.items():
                     caches[name][l].copy_(value)
@@ -225,16 +305,16 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
         # the caches' leading n_dense_layers entries are the dense layers'
         nd = cfg.n_dense_layers
         for l, bp in enumerate(params.get("dense_layers", [])):
-            h = _dense_block(bp, h, cfg, positions, _layer_cache(caches, l),
-                             idx, pol)
+            h = _remat(pol, _dense_block, bp, h, cfg, positions,
+                       _layer_cache(caches, l), idx, pol)
         for l, bp in enumerate(params["layers"]):
-            h, a = _moe_block(bp, h, cfg, positions,
-                              _layer_cache(caches, nd + l), idx, pol)
+            h, a = _remat(pol, _moe_block, bp, h, cfg, positions,
+                          _layer_cache(caches, nd + l), idx, pol)
             aux = aux + a
     else:
         for l, bp in enumerate(params["layers"]):
-            h = _dense_block(bp, h, cfg, positions, _layer_cache(caches, l),
-                             idx, pol)
+            h = _remat(pol, _dense_block, bp, h, cfg, positions,
+                       _layer_cache(caches, l), idx, pol)
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     logits = unembed(params["embed"], h, cfg, pol)
     return logits, caches, aux
@@ -248,37 +328,42 @@ def _forward_zamba(params, cfg, h, positions, caches, idx, pol):
     layers = params["layers"]
     if not cfg.shared_attn:
         for l, bp in enumerate(layers):
-            h = _mamba_layer(bp, h, cfg, caches, l, pol)
+            h = _remat(pol, _mamba_layer, bp, h, cfg, caches, l, pol)
         return h
     every = max(1, cfg.hybrid_every)
     n_sites = _n_sites(cfg)
     for g in range(n_sites):
         for l in range(g * every, min((g + 1) * every, cfg.n_layers)):
-            h = _mamba_layer(layers[l], h, cfg, caches, l, pol)
-        h = _dense_block(params["shared_attn"], h, cfg, positions,
-                         _layer_cache(caches, g, ("k", "v")), idx, pol)
+            h = _remat(pol, _mamba_layer, layers[l], h, cfg, caches, l, pol)
+        h = _remat(pol, _dense_block, params["shared_attn"], h, cfg,
+                   positions, _layer_cache(caches, g, ("k", "v")), idx, pol)
     for l in range(n_sites * every, cfg.n_layers):
-        h = _mamba_layer(layers[l], h, cfg, caches, l, pol)
+        h = _remat(pol, _mamba_layer, layers[l], h, cfg, caches, l, pol)
     return h
+
+
+def _enc_block(bp, he, cfg, pos, pol):
+    B, T, _ = he.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x = rms_norm(he, bp["ln1"], cfg.norm_eps)
+    q = apply_rope(split_heads(x @ bp["attn"]["wq"], B, T, H, hd), pos)
+    k = apply_rope(split_heads(x @ bp["attn"]["wk"], B, T, KV, hd), pos)
+    v = split_heads(x @ bp["attn"]["wv"], B, T, KV, hd)
+    out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=False)
+    he = he + out.transpose(1, 2).reshape(B, T, H * hd) @ bp["attn"]["wo"]
+    return he + mlp(bp["mlp"], rms_norm(he, bp["ln2"], cfg.norm_eps),
+                    cfg.act, pol)
 
 
 def _encode(params, cfg, enc_inputs, pol):
     """The bidirectional encoder over the frame embeddings: RoPE at
     positions 0..T_enc-1, attention with no mask, window or chunk."""
-    he = enc_inputs.to(torch.bfloat16)
+    he = pol.cs(enc_inputs.to(torch.bfloat16), "act_btd")
     B, T, _ = he.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pos = torch.arange(T, device=he.device)[None].expand(B, T)
     for bp in params["enc"]:
-        x = rms_norm(he, bp["ln1"], cfg.norm_eps)
-        q = apply_rope((x @ bp["attn"]["wq"]).view(B, T, H, hd), pos)
-        k = apply_rope((x @ bp["attn"]["wk"]).view(B, T, KV, hd), pos)
-        v = (x @ bp["attn"]["wv"]).view(B, T, KV, hd)
-        out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=False)
-        he = he + out.transpose(1, 2).reshape(B, T, H * hd) @ bp["attn"]["wo"]
-        he = he + mlp(bp["mlp"], rms_norm(he, bp["ln2"], cfg.norm_eps),
-                      cfg.act, pol)
+        he = _remat(pol, _enc_block, bp, he, cfg, pos, pol)
     return rms_norm(he, params["ln_enc"], cfg.norm_eps)
 
 
@@ -297,29 +382,34 @@ def _forward_encdec(params, cfg, h, positions, caches, idx, pol, enc_inputs):
     cross cache."""
     enc_out = None if enc_inputs is None else _encode(params, cfg,
                                                       enc_inputs, pol)
+    for l, bp in enumerate(params["dec"]):
+        h = _remat(pol, _dec_block, bp, h, cfg, positions, caches, l, idx,
+                   pol, enc_out)
+    return h
+
+
+def _dec_block(bp, h, cfg, positions, caches, l, idx, pol, enc_out):
     B, T, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    for l, bp in enumerate(params["dec"]):
-        h = _attend(bp, h, cfg, positions, _layer_cache(caches, l, ("k", "v")),
-                    idx, pol)
-        x = rms_norm(h, bp["ln_cross"], cfg.norm_eps)
-        q = (x @ bp["cross"]["wq"]).view(B, T, H, hd)
-        if enc_out is not None:
-            Te = enc_out.shape[1]
-            xk = (enc_out @ bp["cross"]["wk"]).view(B, Te, KV, hd)
-            xv = (enc_out @ bp["cross"]["wv"]).view(B, Te, KV, hd)
-            if caches is not None:
-                caches["xk"][l, :, :Te].copy_(xk)
-                caches["xv"][l, :, :Te].copy_(xv)
-                xk, xv = caches["xk"][l], caches["xv"][l]
-        else:
+    h = _attend(bp, h, cfg, positions, _layer_cache(caches, l, ("k", "v")),
+                idx, pol)
+    x = rms_norm(h, bp["ln_cross"], cfg.norm_eps)
+    q = split_heads(x @ bp["cross"]["wq"], B, T, H, hd)
+    if enc_out is not None:
+        Te = enc_out.shape[1]
+        xk = split_heads(enc_out @ bp["cross"]["wk"], B, Te, KV, hd)
+        xv = split_heads(enc_out @ bp["cross"]["wv"], B, Te, KV, hd)
+        if caches is not None:
+            caches["xk"][l, :, :Te].copy_(xk)
+            caches["xv"][l, :, :Te].copy_(xv)
             xk, xv = caches["xk"][l], caches["xv"][l]
-        out = ops.attention(q.transpose(1, 2), xk.transpose(1, 2),
-                            xv.transpose(1, 2), causal=False)
-        h = h + out.transpose(1, 2).reshape(B, T, H * hd) @ bp["cross"]["wo"]
-        h = h + mlp(bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps), cfg.act,
-                    pol)
-    return h
+    else:
+        xk, xv = caches["xk"][l], caches["xv"][l]
+    out = ops.attention(q.transpose(1, 2), xk.transpose(1, 2),
+                        xv.transpose(1, 2), causal=False)
+    h = h + out.transpose(1, 2).reshape(B, T, H * hd) @ bp["cross"]["wo"]
+    return h + mlp(bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps), cfg.act,
+                   pol)
 
 
 # --------------------------------------------------------------------------
@@ -329,12 +419,46 @@ def _forward_encdec(params, cfg, h, positions, caches, idx, pol, enc_inputs):
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
             pol=NULL_POLICY) -> torch.Tensor:
     """Next-token cross entropy in fp32; labels -100 are masked."""
+    with dtensor_region(isinstance(logits, DTensor)):
+        return _lm_loss(logits, labels)
+
+
+def _lm_loss(logits, labels):
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    idx = labels.clamp_min(0).long()[..., None]
+    gold = _gold_shards(lf, idx) if isinstance(lf, DTensor) \
+        else torch.gather(lf, -1, idx)[..., 0]
     nll = lse - gold
     mask = (labels >= 0).float()
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def _gold_shards(lf: DTensor, idx) -> DTensor:
+    """``gather(lf, -1, idx)[..., 0]`` over logits sharded on the vocabulary:
+    each rank picks the labels its columns hold and zeroes the others, a
+    partial sum with one nonzero term (exact), then reduced. (DTensor's own
+    masked gather loses its mask on the squeeze, or when the labels are
+    sharded otherwise than the logits.)"""
+    mesh = lf.device_mesh
+    lf = lf.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                for p in lf.placements])
+    pl = lf.placements
+    start = ops.shard_start(lf, 2)
+    row_pl = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate()
+                   for p in pl)
+
+    def pick(lf_local, idx):
+        j = idx - start
+        hit = (j >= 0) & (j < lf_local.shape[-1])
+        g = torch.gather(lf_local, -1, j.clamp(0, lf_local.shape[-1] - 1))
+        return (g * hit.to(g.dtype))[..., 0]
+    out_pl = tuple(Partial() if p.is_shard(2) else q
+                   for p, q in zip(pl, row_pl))
+    gold = local_map(pick, out_placements=(out_pl,),
+                     in_placements=(tuple(pl), row_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(lf, idx)
+    return gold.redistribute(mesh, row_pl)
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],

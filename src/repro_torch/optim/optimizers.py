@@ -110,8 +110,8 @@ def clip_by_global_norm(grads, max_norm: float):
 def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1) -> Optimizer:
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                      device=p.device)
+        zeros = lambda p: torch.zeros_like(  # noqa: E731
+            p, dtype=torch.float32, memory_format=torch.contiguous_format)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     def update(grads, state, params, step):

@@ -1155,3 +1155,55 @@ def test_sharded_tables_and_merges_live_on_the_card(cuda):
     assert sh.scattered_queries == len(queries)
     for name in ("tasks", "roles"):
         assert sh.table(name).device.type == "cuda"
+
+
+@pytest.mark.parametrize("arch,body", [("h2o-danube-1.8b", "wgmma"),
+                                       ("rwkv6-3b", "mma")])
+def test_remat_on_a_card_mesh(cuda, arch, body):
+    """Two layers of the published width on a 1×1 mesh of the card (a
+    one-rank NCCL group), fsdp_tp: under ``remat="full"`` the gradients are
+    bit-equal to ``"none"``'s, the forward kernel launches twice a layer
+    (forward, then recompute) and the backward once, on the family's
+    tensor-core body, with DTensors never reaching a kernel."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import card_group, make_mesh
+    from repro_torch.launch.sharding import (batch_specs, distribute_tree,
+                                             make_policy, param_specs)
+    from repro_torch.models import loss_fn
+    from repro_torch.models.model import dtensor_region
+    from repro_torch.optim import tree_leaves
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+    fwd, bwd = {"wgmma": ("flash_attention", "flash_attention_bwd"),
+                "mma": ("rwkv6_scan", "rwkv6_scan_bwd")}[body]
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256))
+                                .astype(np.int32), device=cuda)
+             for k in ("tokens", "labels")}
+    grads, counts = {}, {}
+    with card_group():
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for remat in ("none", "full"):
+            pol = make_policy(mesh, "fsdp_tp", remat=remat)
+            dp = distribute_tree(
+                mesh, param_specs(params, cfg, mesh, "fsdp_tp"), params)
+            db = distribute_tree(mesh, batch_specs(mesh, batch), batch)
+            leaves = tree_leaves(dp)
+            for p in leaves:
+                p.requires_grad_(True)
+            ops.reset_launch_counts()
+            with dtensor_region(True):
+                loss = loss_fn(dp, cfg, db, pol=pol)
+                g = torch.autograd.grad(loss.full_tensor(), leaves)
+            torch.cuda.synchronize()
+            grads[remat] = [x.full_tensor() for x in g]
+            counts[remat] = (ops.launch_counts(),
+                             dict(getattr(ops, bwd).launches_by_body))
+    for a, b in zip(grads["full"], grads["none"]):
+        assert torch.equal(a, b)
+    for remat, per_layer in (("none", 1), ("full", 2)):
+        launches, by_body = counts[remat]
+        assert launches[fwd] == per_layer * cfg.n_layers, (remat, launches)
+        assert launches[bwd] == cfg.n_layers, (remat, launches)
+        assert by_body[body] == cfg.n_layers, (remat, by_body)

@@ -3,8 +3,10 @@ port, and its data and checkpoints against the JAX package's.
 
   * the loop: the loss falls on the structured stream; a failure at step 7
     resumes from the step-5 checkpoint bit-identical to an uninterrupted
-    run; microbatches 4 give the loss of one batch; ``mesh_shape`` raises
-    (ROADMAP A3); the CLI;
+    run; microbatches 4 give the loss of one batch; a 1×1 mesh trains to
+    the no-mesh losses, a mesh larger than the process group raises, and
+    ``strategy`` without a mesh is ignored (the reference's behaviour);
+    the CLI;
   * checkpoints: atomic commits and ``keep`` retention, a shape mismatch
     raising, the layout (stacks on a leading axis, bf16 stored as fp32 and
     named ``"bfloat16"``); and interchange both ways: the reference's
@@ -99,17 +101,60 @@ def test_microbatched_step_matches_single_batch():
     assert abs(l1 - l2) < 0.05, (l1, l2)
 
 
-def test_mesh_shape_waits_for_the_ports_sharding():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        train(cpu(steps=1, mesh_shape=(2, 2)))
-
-
-@pytest.mark.parametrize("knob", [{"strategy": "fsdp"}, {"compress": True}])
+@pytest.mark.parametrize("knob", [{"compress": True}])
 def test_sharding_knobs_wait_for_the_ports_sharding(knob):
-    """``strategy`` and ``compress`` act only across devices; without the
-    port's sharding they raise rather than train as if unset."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    """``compress`` (int8 gradient compression between devices) is a flag
+    the reference never reads; the port raises rather than train as if it
+    were unset."""
+    with pytest.raises(NotImplementedError, match="never reads"):
         train(cpu(steps=1, **knob))
+
+
+@pytest.fixture
+def one_rank_group():
+    """An in-process gloo group of one rank (world size 1)."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import _free_port
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_1x1_trains_to_the_no_mesh_losses(one_rank_group):
+    """On a 1×1 mesh every DTensor holds its whole tensor: the losses are
+    the no-mesh run's, bit for bit."""
+    common = dict(arch=DANUBE, steps=3, global_batch=4, seq_len=16,
+                  log_every=1)
+    quiet = lambda _: None   # noqa: E731
+    want = train(cpu(**common), quiet)
+    got = train(cpu(**common, mesh_shape=(1, 1), strategy="fsdp_tp"), quiet)
+    assert got["losses"] == want["losses"]
+    assert _leaves_equal([t.full_tensor() for t in tree_leaves(got["params"])],
+                         want["params"])
+
+
+def test_strategy_without_a_mesh_trains_as_dp():
+    """The reference reads ``strategy`` only with a mesh; without one,
+    ``fsdp`` trains as ``dp`` does."""
+    common = dict(arch=DANUBE, steps=2, global_batch=4, seq_len=16,
+                  log_every=1)
+    quiet = lambda _: None   # noqa: E731
+    a = train(cpu(**common, strategy="fsdp"), quiet)
+    b = train(cpu(**common), quiet)
+    assert a["losses"] == b["losses"]
+    assert _leaves_equal(a["params"], b["params"])
+
+
+def test_mesh_larger_than_the_world_raises(one_rank_group):
+    with pytest.raises(ValueError, match="world of 4 processes, the process "
+                                         "group has 1"):
+        train(cpu(steps=1, mesh_shape=(2, 2)))
 
 
 def test_step_fn_prefill_and_decode_steps_match_forward():

@@ -5,6 +5,8 @@ training phase's batch.
 
     python3 tools/train_peak_memory.py [--arch NAME] [--batch N ...]
                                        [--steps S] [--microbatch M]
+                                       [--remat none|full|dots]
+                                       [--strategy S]
                                        [--scan-bwd-body simt] [--nudge P]
 
 For each batch (rows of 2,048 tokens, ``chip_smoke.TRAIN_T``), in the
@@ -19,6 +21,12 @@ batch that runs out of memory prints ``"oom": true`` and the next batch
 still runs. Then the card's name and power limit as ``nvidia-smi`` gives
 them. Imports nothing of JAX.
 
+With ``--remat`` (other than ``none``) or ``--strategy``, the loop trains
+on a 1×1 mesh of the card (``mesh_shape=(1, 1)`` in a one-rank NCCL
+group, ``launch.mesh.card_group``) under ``make_policy(mesh, strategy,
+remat=...)``: DTensor parameters, optimizer state and batches, each
+layer's block under ``torch.utils.checkpoint``.
+
 Two switches witness how far rounding alone moves the losses:
 ``--scan-bwd-body simt`` runs RWKV6's scan backward on its CUDA-core body
 wherever ``scan_bwd_body`` would pick the tensor-core one, and ``--nudge
@@ -28,6 +36,7 @@ zero before the first step.
 """
 
 import argparse
+import contextlib
 import importlib
 import json
 import subprocess
@@ -72,7 +81,8 @@ def nudge(params, share):
     return params
 
 
-def run(arch_name, batch, steps, microbatch):
+def run(arch_name, batch, steps, microbatch, mesh_shape=None,
+        strategy="dp"):
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_mod
@@ -94,13 +104,15 @@ def run(arch_name, batch, steps, microbatch):
     cfg = train_mod.TrainConfig(arch=arch_name, scale="full", steps=steps,
                                 global_batch=batch, seq_len=SEQ_LEN,
                                 microbatch=microbatch, log_every=1,
-                                device=DEVICE)
+                                device=DEVICE, mesh_shape=mesh_shape,
+                                strategy=strategy)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     train_mod.make_train_step = timed_make
     line = {"arch": arch_name, "batch": batch, "seq_len": SEQ_LEN,
-            "microbatch": microbatch, "steps": steps}
+            "microbatch": microbatch, "steps": steps,
+            "mesh_shape": mesh_shape, "strategy": strategy}
     try:
         out = train_mod.train(cfg, progress=lambda _: None)
         line["losses"] = [loss for _, loss in out["losses"]]
@@ -126,6 +138,9 @@ def main() -> int:
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 2])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--remat", choices=["none", "full", "dots"],
+                    default="none")
+    ap.add_argument("--strategy", default=None)
     ap.add_argument("--scan-bwd-body", choices=["simt"])
     ap.add_argument("--nudge", type=float, default=0.0)
     args = ap.parse_args()
@@ -143,10 +158,22 @@ def main() -> int:
         make = train_mod.init_params
         train_mod.init_params = lambda *a, **kw: nudge(make(*a, **kw),
                                                        args.nudge)
-    for b in args.batch:
-        line = run(args.arch, b, args.steps, args.microbatch)
-        line.update(scan_bwd_body=args.scan_bwd_body, nudge=args.nudge)
-        print(json.dumps(line), flush=True)
+    meshed = args.remat != "none" or args.strategy is not None
+    with contextlib.ExitStack() as stack:
+        if meshed:
+            from repro_torch.launch import train as train_mod
+            from repro_torch.launch.mesh import card_group
+            stack.enter_context(card_group())
+            policy = train_mod.make_policy
+            train_mod.make_policy = lambda *a, **kw: policy(
+                *a, remat=args.remat, **kw)
+        for b in args.batch:
+            line = run(args.arch, b, args.steps, args.microbatch,
+                       mesh_shape=(1, 1) if meshed else None,
+                       strategy=args.strategy or "dp")
+            line.update(scan_bwd_body=args.scan_bwd_body, nudge=args.nudge,
+                        remat=args.remat)
+            print(json.dumps(line), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
