@@ -28,9 +28,12 @@ Guarantees (the reference's):
     ``shardings`` (a matching tree of ``launch.sharding.NamedSharding``)
     each leaf is placed as a DTensor on the CURRENT mesh — elastic
     re-sharding, as the reference's ``shardings=``;
-  * sharded trees — a DTensor leaf is saved whole (gathered on every
-    rank: call ``save`` on all of them); rank 0 of the process group
-    writes the files, the other ranks none;
+  * sharded trees — a DTensor leaf is saved whole: gathered leaf by leaf
+    on the device of every rank (an all-gather: call ``save`` on all of
+    them), copied to the host and written by rank 0 of the process group
+    alone. ``wait`` (and so ``save(block=True)``, and the next ``save``)
+    then holds every rank until rank 0's write is done, so any rank may
+    restore after it;
   * retention — keep the last `keep` checkpoints.
 """
 
@@ -66,11 +69,23 @@ def _host(t) -> np.ndarray:
     return tensor_to_numpy(t) if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a group, or the
+    only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _flatten(tree) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
     """{key path: host array (stacks on a leading axis, bf16 widened)},
-    {key path: dtype name}."""
+    {key path: dtype name}; on a rank that does not write, each DTensor
+    leaf's gather alone (its part of the collective) and nothing kept."""
     arrays, dtypes = {}, {}
     for path, (ts, stacked) in reference_leaves(tree).items():
+        if not _writes():
+            for t in ts:
+                if isinstance(t, DTensor):
+                    t.full_tensor()
+            continue
         key = "/".join(path)
         arrays[key] = np.stack([_host(t) for t in ts]) if stacked \
             else _host(ts[0])
@@ -84,6 +99,7 @@ class Checkpointer:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._pending = False   # a save not yet waited for, on every rank
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Dict[str, Any], extras: Optional[Dict] = None,
@@ -92,7 +108,10 @@ class Checkpointer:
         self.wait()  # one in-flight save at a time
         flat, dtypes = _flatten(tree)
         extras = dict(extras or {})
-        if dist.is_initialized() and dist.get_rank() != 0:
+        self._pending = True
+        if not _writes():
+            if block:
+                self.wait()
             return
 
         def _write():
@@ -129,9 +148,14 @@ class Checkpointer:
             self.wait()
 
     def wait(self):
+        """Until the last save is on disk; under a process group every rank
+        waits for rank 0's write (call it on all ranks)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending and dist.is_initialized():
+            dist.barrier()
+        self._pending = False
 
     def _gc(self):
         steps = sorted(d for d in os.listdir(self.dir) if d.startswith("step_"))

@@ -15,21 +15,25 @@ the reference's layouts, (B,H,T,hd) and (B,H,T,K/V); the reference's
 arguments, since the CUDA kernels pick their own tiles.
 
 Under a mesh ``attention`` and ``rwkv_scan`` take DTensors and run the
-kernel (or its plain version, on the CPU) on each rank's local shard
-through ``local_map``: attention and the scan are independent per (row,
-head), so a shard of rows (batch) and of heads needs no collective. The
-shards kept are q's (r's) own on the batch and head dims, where they
-divide every input's count; any other placement (the sequence, under
-sequence parallelism; heads that do not divide the axis, as 8 KV heads on
-16 ranks) is gathered first. No kernel receives a DTensor.
+kernel (or its plain version, on the CPU) on each rank's local shard:
+attention and the scan are independent per (row, head), so a shard of
+rows (batch) and of heads needs no collective. The shards kept are q's
+(r's) own on the batch and head dims, where they divide the counts; any
+other placement (the sequence, under sequence parallelism) is gathered
+first. Where the query heads divide the axis and the KV heads do not (8
+KV heads on 16 ranks), K/V come replicated and each rank slices the one
+KV head its query heads read, as the reference's sharding of q alone
+does; their gradients are then partial sums over the axis. No kernel
+receives a DTensor.
 """
 
 from __future__ import annotations
 
-import functools
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard)
 from torch.distributed.tensor.experimental import local_map
 
 from . import ref
@@ -106,14 +110,29 @@ def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
               chunk: Optional[int] = None, scale: Optional[float] = None):
     """q (B,H,Tq,hd), k (B,KV,Tk,hd), v (B,KV,Tk,hdv) with hdv <= hd ->
     (B,H,Tq,hdv); queries at the tail."""
-    fn = functools.partial(flash_attention, causal=causal, window=window,
-                           chunk=chunk, scale=scale)
+    kw = dict(causal=causal, window=window, chunk=chunk, scale=scale)
     if not isinstance(q, DTensor):
-        return fn(q, k, v)
-    pl = _row_head_shards(q, (q.shape[1], k.shape[1]))
-    return local_map(fn, out_placements=(pl,), in_placements=(pl, pl, pl),
-                     device_mesh=q.device_mesh,
-                     redistribute_inputs=True)(q, k, v)
+        return flash_attention(q, k, v, **kw)
+    mesh, (H, KV) = q.device_mesh, (q.shape[1], k.shape[1])
+    pl = _row_head_shards(q, (H,))
+    n = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(1))
+    one_kv = KV % n != 0 and n % KV == 0
+    if one_kv:                      # one KV head a rank: K/V replicated
+        kv_pl = tuple(Replicate() if p == Shard(1) else p for p in pl)
+        kv_grad = tuple(Partial() if p == Shard(1) else p for p in pl)
+    else:
+        if KV % n != 0:             # no even split: every head on each rank
+            pl = _row_head_shards(q, (H, KV))
+        kv_pl = kv_grad = pl        # the KV heads shard beside q's
+    q = q.redistribute(mesh, pl)
+    ql = q.to_local()
+    kl, vl = (t.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+              for t in (k, v))
+    if one_kv:
+        j = shard_start(q, 1) * KV // H
+        kl, vl = kl[:, j:j + 1], vl[:, j:j + 1]
+    return DTensor.from_local(flash_attention(ql, kl, vl, **kw), mesh, pl,
+                              run_check=False)
 
 
 def rwkv_scan(r, k, v, w_log, u, state=None):

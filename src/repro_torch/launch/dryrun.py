@@ -22,7 +22,8 @@ Where each field of a cell's record comes from:
                      plain versions (``_plain_kernels``).
   bytes_per_device   each local non-view op's tensor inputs read once and
                      outputs written once: unfused traffic (XLA's "bytes
-                     accessed" is after fusion, so it reads lower).
+                     accessed" is after fusion, so it reads lower). An
+                     allocation (``empty``) writes nothing and is left out.
   collectives        ``counts`` from ``CommDebugMode`` under XLA's HLO names;
                      ``bytes_per_device`` and ``by_type`` sum the result
                      bytes of each functional collective on this rank (the
@@ -93,12 +94,19 @@ _COLLECTIVES = {
     "all_to_all_single": "all-to-all",
 }
 
+# ops that allocate and write nothing (DTensor makes such buffers on its
+# first run of an op): no traffic
+_ALLOCATIONS = frozenset({torch.ops.aten.empty, torch.ops.aten.empty_strided,
+                          torch.ops.aten.empty_like, torch.ops.aten.new_empty,
+                          torch.ops.aten.new_empty_strided})
+
 _NOTES = {
     "flops": "FlopCounterMode's formulas over rank 0's local ops on meta "
              "tensors (the attention and the RWKV6 scan count their plain "
              "versions)",
     "bytes": "unfused: every local non-view op's inputs read once and "
-             "outputs written once",
+             "outputs written once (allocations, which write nothing, "
+             "left out)",
     "lower_s": "null: the port runs the step eagerly, nothing is lowered "
                "or compiled (run_s: the eager run on the CPU)",
     "memory": "local shard bytes of arguments and outputs, outputs updated "
@@ -175,7 +183,8 @@ class _LocalCounter(TorchDispatchMode):
         if func.overloadpacket in flop_registry:
             self.flops += flop_registry[func.overloadpacket](
                 *args, **kwargs, out_val=out)
-        if not func.is_view and func.namespace == "aten":
+        if not func.is_view and func.namespace == "aten" \
+                and func.overloadpacket not in _ALLOCATIONS:
             self.bytes += sum(_nbytes(t) for t in flat + outs)
         return out
 

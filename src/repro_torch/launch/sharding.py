@@ -27,6 +27,9 @@ reference stacks each leaf on a leading layer axis and spots a stacked
 leaf by its leading size (``param_specs``' layer counts). The port gives a
 list element its unstacked spec directly; the reference's heuristic runs
 only on leaves outside lists (Adafactor's slots keep the stacked layout).
+
+``MeshPolicy`` has the reference's fields but ``use_kernels``: the port's
+kernels run whenever a tensor is on the card, and no policy switches them.
 """
 
 from __future__ import annotations
@@ -126,7 +129,6 @@ class MeshPolicy:
     remat: str = "none"            # none | full | dots | dots_no_batch
     seq_shard: bool = False        # sequence parallelism (long context)
     microbatch: int = 1
-    use_kernels: bool = False
     unroll_layers: bool = False   # moot: the port's layer loops are unrolled
     rules: Dict[str, P] = dataclasses.field(default_factory=dict)
 

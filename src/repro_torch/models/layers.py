@@ -60,7 +60,6 @@ class NullPolicy:
         return x
 
     remat: str = "none"
-    use_kernels: bool = False
 
 
 NULL_POLICY = NullPolicy()

@@ -56,7 +56,8 @@ from typing import Any, Dict
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -102,21 +103,26 @@ def _remat(pol, block, *args):
                           create_selective_checkpoint_contexts, policy))
 
 
+_regions = [0]   # dtensor regions open (in any thread: backward runs in one)
+
+
 @contextlib.contextmanager
 def dtensor_region(on: bool):
     """When ``on``, plain tensors meeting DTensors inside count as
-    replicated DTensors (the previous setting is restored on exit, so
-    regions nest)."""
+    replicated DTensors: torch's ``implicit_replication()``, entered by
+    the outermost region only, since it switches itself off on exit and
+    regions nest (a train step's holds the forward's and the loss's, and
+    remat's recompute runs in the step's backward)."""
     if not on:
         yield
         return
-    disp = DTensor._op_dispatcher
-    prev = disp._allow_implicit_replication
-    disp._allow_implicit_replication = True
+    _regions[0] += 1
     try:
-        yield
+        with implicit_replication() if _regions[0] == 1 \
+                else contextlib.nullcontext():
+            yield
     finally:
-        disp._allow_implicit_replication = prev
+        _regions[0] -= 1
 
 
 def _n_sites(cfg: ArchConfig) -> int:

@@ -9,6 +9,8 @@ Validates:
   * the two-point layer extrapolation against the full-depth count (the
     port's layer loop is always unrolled);
   * the collective types of danube's train cell;
+  * GQA attention on a 16-way model axis (32 query heads, 8 KV heads):
+    each rank counts the flops of its 2 query heads, not all 32;
   * ``run_cell``'s record on the 16×16 production mesh (a fake group of
     256 ranks, a small shape): the reference's keys, ``null`` with a note
     where torch has no counterpart (lower/compile times, XLA's temp and
@@ -56,15 +58,43 @@ with fake_group(8):
             f2 = cell(dataclasses.replace(base, n_layers=2), shape, kind)
             f4 = cell(dataclasses.replace(base, n_layers=4), shape, kind)
             extrap = f2["flops"] + (6 - 2) * (f4["flops"] - f2["flops"]) / 2
+            b_extrap = f2["bytes"] + (6 - 2) * (f4["bytes"] - f2["bytes"]) / 2
             coll = full["collectives"]
             out[f"{arch}/{shape}"] = {
                 "flops_full": full["flops"], "flops_extrap": extrap,
                 "rel_err": abs(extrap - full["flops"]) / max(full["flops"], 1.0),
+                "bytes_full": full["bytes"], "bytes_extrap": b_extrap,
                 "n_collectives": sum(coll["counts"].values()),
                 "coll_types": sorted(coll["counts"]),
                 "coll_bytes": coll["bytes_per_device"],
                 "memory": full["memory"],
             }
+# danube's heads on a 16-way model axis: 32 query heads, 8 KV heads
+import torch
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.kernels import ops, ref
+meta = lambda *s: torch.empty(s, dtype=torch.bfloat16, device="meta")
+with fake_group(16):
+    mesh = make_mesh((1, 16), ("data", "model"))
+    q = distribute_tensor(meta(2, 32, 64, 16), mesh, [Replicate(), Shard(1)])
+    kv = [distribute_tensor(meta(2, 8, 64, 16), mesh, [Replicate()] * 2)
+          for _ in range(2)]
+    flops = {}
+    for name, args in (("sharded", (q, *kv)),
+                       ("replicated", (q.redistribute(mesh, [Replicate()] * 2),
+                                       *kv))):
+        c = dryrun._LocalCounter()
+        with dryrun._plain_kernels(), c:
+            o = ops.attention(*args)
+        flops[name] = c.flops
+        flops[name + "_out"] = list(o.to_local().shape)
+    for name, h, kvh in (("two_heads", 2, 1), ("all_heads", 32, 8)):
+        c = dryrun._LocalCounter()
+        with c:
+            ref.flash_attention_ref(meta(2, h, 64, 16), meta(2, kvh, 64, 16),
+                                    meta(2, kvh, 64, 16))
+        flops[name] = c.flops
+out["attention_16_way"] = flops
 rec = dryrun.run_cell("h2o-danube-1.8b", "decode_32k", verbose=False)
 with open(sys.argv[1], "w") as f:
     json.dump(rec, f)
@@ -92,8 +122,26 @@ def run(tmp_path_factory):
     return json.loads(proc.stdout.strip().splitlines()[-1]), rec, str(d)
 
 
+def _cells(results):
+    return {k: v for k, v in results.items() if "/" in k}
+
+
+def test_gqa_attention_splits_query_heads_on_a_16_way_axis(run):
+    """32 query heads and 8 KV heads on 16 model ranks: each rank runs its
+    2 query heads on the one KV head they read (the reference shards q
+    and replicates K/V), so a rank counts the flops of 2 heads, a 16th of
+    the 32 that a replicated q would run on every rank."""
+    results, _, _ = run
+    f = results["attention_16_way"]
+    assert f["sharded"] == f["two_heads"] > 0, f
+    assert f["sharded_out"] == [2, 2, 64, 16], f
+    assert f["replicated"] == f["all_heads"] == 16 * f["two_heads"], f
+    assert f["replicated_out"] == [2, 32, 64, 16], f
+
+
 def test_cells_run_and_shard(run):
     results, _, _ = run
+    results = _cells(results)
     assert len(results) == 4
     for tag, r in results.items():
         assert r["n_collectives"] > 0, f"{tag}: no collectives — not sharded?"
@@ -106,9 +154,23 @@ def test_two_point_extrapolation_exact(run):
     match the full-depth count (the reference's bound: 6 %, or an absolute
     error under 1e6 where the decode cells' intercept dominates)."""
     results, _, _ = run
-    for tag, r in results.items():
+    for tag, r in _cells(results).items():
         abs_err = abs(r["flops_extrap"] - r["flops_full"])
         assert r["rel_err"] < 0.06 or abs_err < 1e6, (tag, r)
+
+
+def test_bytes_extrapolate_and_count_no_allocation(run):
+    """The bytes of a cell grow by the same amount a layer, whichever cell
+    a process measures first (the first run of an op under DTensor
+    allocates buffers, which move nothing), so the two-point extrapolation
+    lands on the full-depth count, and the record's bytes are positive."""
+    results, rec, _ = run
+    for tag, r in _cells(results).items():
+        assert r["bytes_full"] > 0, (tag, r)
+        assert abs(r["bytes_extrap"] - r["bytes_full"]) \
+            <= 0.06 * r["bytes_full"], (tag, r)
+    assert rec["bytes_per_device"] > 0
+    assert rec["roofline"]["memory_s"] > 0
 
 
 def test_expected_collective_types(run):

@@ -7,8 +7,12 @@ hang), and each runs ``launch.train.train`` with ``mesh_shape=(2, 2)``:
   * smoke danube under ``dp``, ``fsdp``, ``tp`` and ``fsdp_tp``, llama4
     under ``fsdp_tp_ep``, and one more strategy for each other family
     (rwkv6, zamba2 under sequence parallelism, minicpm3's MLA, kimi-k2's
-    MoE), 3 steps each: the losses within rtol 1e-4 of the one-process
-    port run;
+    MoE), and a danube with one KV head for four query heads under
+    ``tp`` and ``fsdp_tp`` (each rank's query heads read a slice of the
+    replicated K/V, whose gradients are summed over the model axis), 3
+    steps each: the losses within rtol 1e-4 of the one-process port run;
+  * every gradient leaf of one step of danube and of the one-KV-head
+    danube on the mesh within 1e-5 of one process's (of the leaf's peak);
   * the failure drill across strategies: a run under ``fsdp_tp`` that
     crashes at step 4 (checkpoint at step 3), resumed under ``dp``, lands
     on the uninterrupted ``fsdp_tp`` run within 1e-4; and
@@ -34,7 +38,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import datetime, json, os, queue, socket, sys, traceback
+import dataclasses, datetime, json, os, queue, socket, sys, traceback
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -42,9 +46,18 @@ import torch.multiprocessing as mp
 import repro_torch.launch.train as T
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.sharding import named_sharding, param_specs
-from repro_torch.models import get_arch
+from repro_torch.launch.sharding import (batch_specs, distribute_tree,
+                                         make_policy, named_sharding,
+                                         param_specs)
+from repro_torch.models import get_arch, loss_fn
+from repro_torch.models.arch import register_arch
+from repro_torch.models.model import dtensor_region
 from repro_torch.optim import tree_leaves, tree_map
+
+# one KV head for four query heads: on the 2-way model axis each rank holds
+# two query heads and slices the replicated KV head they read
+register_arch(dataclasses.replace(
+    get_arch("h2o-danube-1.8b").scaled(n_kv_heads=1), name="danube-kv1"))
 
 _init = T.init_params
 T.init_params = lambda g, a: tree_map(
@@ -57,8 +70,42 @@ RUNS += [(f"{a}/{s}", dict(BASE, arch=a, strategy=s))
          for a, s in (("llama4-scout-17b-a16e", "fsdp_tp_ep"),
                       ("rwkv6-3b", "fsdp_tp"), ("zamba2-1.2b", "fsdp_tp_sp"),
                       ("minicpm3-4b", "tp"), ("kimi-k2-1t-a32b", "fsdp_tp"))]
+RUNS += [(f"danube-kv1/{s}", dict(BASE, arch="danube-kv1", scale="full",
+                                  strategy=s)) for s in ("tp", "fsdp_tp")]
 DRILL = dict(BASE, arch="h2o-danube-1.8b", steps=6, ckpt_every=3)
+GRADS = [("h2o-danube-1.8b", "fsdp_tp"), ("danube-kv1", "tp"),
+         ("danube-kv1", "fsdp_tp")]
 quiet = lambda *_: None
+
+
+# the largest gap between a gradient leaf on the (2, 2) mesh and in one
+# process (the same fp32 parameters and batch), over the leaf's peak
+def grad_err(arch, strategy):
+    cfg = get_arch(arch)
+    if arch == "h2o-danube-1.8b":
+        cfg = cfg.scaled()
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (8, 16), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dp = distribute_tree(mesh, param_specs(params, cfg, mesh, strategy),
+                         params)
+    db = distribute_tree(mesh, batch_specs(mesh, batch), batch)
+    got, want = [], []
+    for tree, b, pol, out in (
+            (dp, db, make_policy(mesh, strategy), got),
+            (params, batch, T.NullPolicy(), want)):
+        leaves = tree_leaves(tree)
+        for p in leaves:
+            p.requires_grad_(True)
+        with dtensor_region(tree is dp):
+            loss = loss_fn(tree, cfg, b, pol=pol)
+            if tree is dp:
+                loss = loss.full_tensor()
+            out += torch.autograd.grad(loss, leaves)
+    return max(float((a.full_tensor() - w).abs().max() / w.abs().max())
+               for a, w in zip(got, want) if w.abs().max() > 0)
 
 
 def losses(out):
@@ -74,6 +121,8 @@ def worker(rank, port, tmp, q):
         for name, kw in RUNS:
             out[name] = losses(T.train(T.TrainConfig(mesh_shape=(2, 2), **kw),
                                        quiet))
+        for arch, s in GRADS:
+            out[f"grads/{arch}/{s}"] = grad_err(arch, s)
         out["drill/uninterrupted"] = losses(T.train(T.TrainConfig(
             mesh_shape=(2, 2), strategy="fsdp_tp",
             ckpt_dir=os.path.join(tmp, "a"), **DRILL), quiet))
@@ -157,7 +206,8 @@ STRATEGY_RUNS = ["h2o-danube-1.8b/dp", "h2o-danube-1.8b/fsdp",
                  "h2o-danube-1.8b/tp", "h2o-danube-1.8b/fsdp_tp",
                  "llama4-scout-17b-a16e/fsdp_tp_ep", "rwkv6-3b/fsdp_tp",
                  "zamba2-1.2b/fsdp_tp_sp", "minicpm3-4b/tp",
-                 "kimi-k2-1t-a32b/fsdp_tp"]
+                 "kimi-k2-1t-a32b/fsdp_tp", "danube-kv1/tp",
+                 "danube-kv1/fsdp_tp"]
 
 
 @pytest.fixture(scope="module")
@@ -173,6 +223,18 @@ def results(tmp_path_factory):
     ranks = out["ranks"]
     assert sorted(ranks) == ["0", "1", "2", "3"]
     return ranks, out["single"]
+
+
+@pytest.mark.parametrize("run", ["h2o-danube-1.8b/fsdp_tp", "danube-kv1/tp",
+                                 "danube-kv1/fsdp_tp"])
+def test_mesh_gradients_match_one_process(results, run):
+    """Every gradient leaf on the mesh equals one process's within fp32
+    roundings: with one KV head for four query heads, each rank's K/V
+    gradient is a partial sum that the model axis adds up (a loss within
+    1e-4 after two AdamW steps would not see a missing term)."""
+    ranks, _ = results
+    for rank, out in ranks.items():
+        assert out[f"grads/{run}"] <= 1e-5, (rank, run, out[f"grads/{run}"])
 
 
 @pytest.mark.parametrize("run", STRATEGY_RUNS)
