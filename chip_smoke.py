@@ -60,8 +60,16 @@ just after:
     final-state cotangent, the decay floor across a chunk and a sub-chunk
     boundary, fp32, rows off 16 bytes, K 16 to 64 and V 16 to 256), and
     a first step's gradients to the plain scan's at 2 layers;
+  * training under a sharding policy with remat on a 1x1 mesh of the card:
+    danube and rwkv6-3b under ``fsdp_tp``, and llama4-scout-17b-a16e at
+    its published width cut to 1 of 48 layers under ``fsdp_tp_ep``, the
+    MoE layer's sharded path (each rank's own tokens routed), its first
+    loss held to an unpolicied ``loss_fn`` on the same parameters and
+    batch and its dropped assignments to the same count;
   * one ``CobraSession.plan_step`` report of the step planner under the
-    port's default hardware table (one H100 SXM), on the host.
+    port's default hardware table (one H100 SXM), on the host;
+  * the five examples' twins (``examples/*_torch.py``) through their
+    ``main()``, each held to what its reference example checks.
 
 It checks the outputs, then times every kernel at the shapes those paths
 give it.
@@ -165,6 +173,18 @@ TRAIN_RWKV_STEPS = 6
 # ran out of memory without remat); the steps of each
 TRAIN_REMAT_STEPS = 3
 TRAIN_REMAT_RWKV_TOL = 1e-3   # its first loss against the 1-row microbatches'
+# MoE under a policy: llama4-scout-17b-a16e at its published width cut to 1
+# of 48 layers (4.27 B parameters with the embeddings: bf16 weights and
+# gradients 17.1 GB, AdamW's fp32 moments 34.2 GB; 2 layers, 6.47 B, would
+# need ~78 GB before activations), 2 x 2,048 tokens a step, make_policy(1x1
+# mesh, "fsdp_tp_ep", remat="full"): the MoE layer's sharded path (each
+# rank's own tokens routed, the buffer's block summed over the data axis)
+# on one rank. Its first loss against an unpolicied loss_fn's on the same
+# parameters and batch, relative
+TRAIN_MOE_ARCH = "llama4-scout-17b-a16e"
+TRAIN_MOE_LAYERS = 1
+TRAIN_MOE_BATCH = 2
+TRAIN_MOE_TOL = 1e-4
 # each trained family's kernels, by ``ArchConfig.family``, one launch a
 # layer a step each: (forward, backward, the ops entry the layer calls, its
 # plain version in ref, the body every backward launch must run: a key of
@@ -173,6 +193,8 @@ TRAIN_REMAT_RWKV_TOL = 1e-3   # its first loss against the 1-row microbatches'
 TRAIN_KERNELS = {
     "dense": ("flash_attention", "flash_attention_bwd", "attention",
               "flash_attention_ref", "wgmma", ("flash_fwd", "flash_bwd_wg")),
+    "moe": ("flash_attention", "flash_attention_bwd", "attention",
+            "flash_attention_ref", "wgmma", ("flash_fwd", "flash_bwd_wg")),
     "ssm": ("rwkv6_scan", "rwkv6_scan_bwd", "rwkv_scan", "rwkv6_scan_ref",
             "mma", ("rwkv6_fwd", "rwkv6_bwd_chunk_mma"))}
 # a profiler trace's warm-up step, in seconds before the calls it keeps,
@@ -227,7 +249,14 @@ def check(ok, what: str) -> None:
         raise AssertionError(what)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``at_s``, the seconds
+    since the script started when it was printed (the phases' walls)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1228,6 +1257,13 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
 
     want_launches = _launches_per_serve(arch)
     peaks = {}
+    # the phase's wall by part (where a smoke run's time goes)
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
 
     # a first run through the capture, which keeps the kernel's inputs and
     # output at the prefill's first call and at the last decode call (and,
@@ -1267,6 +1303,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
     shapes = {"prefill": _moved(cap.first, "cpu"),
               "decode": _moved(cap.last, "cpu")}
     del cap, a, args, kw
+    part("capture_and_prefill_parity")
 
     # the main path, uninstrumented: launch counts from 0 just before it,
     # read just after
@@ -1286,6 +1323,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
           f"{arch_name}: wrong number of new tokens")
     served_all = torch.stack(server.step_logits).float()   # (steps, B, V)
 
+    part("main")
     # decode logits of the unpadded (longest) request against a full
     # forward of its prompt and generated tokens
     with _Routing() as full_routing:
@@ -1336,6 +1374,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
         check(decode_err <= atol,
               f"{arch_name}: decode logits differ from the full forward by "
               f"{decode_err} > {atol} (logits peak at {peak})")
+    part("full_forward_checks")
     # the witness: the same serve with the plain attention in place of the
     # kernel, so that the model's own bf16 rounding (another matmul shape
     # at decode than in the full forward) is read apart from the kernel's
@@ -1391,6 +1430,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
                   f"attention moves them by {rounding_err})")
             del witness, unpinned, rtz
     del served_all, served_routing
+    part("plain_attention_witness")
 
     # one prefill and one decode step again, device time against wall time
     caches = make_caches(arch, len(PROMPT_LENS), MAX_SEQ, dtype=torch.float32,
@@ -1412,6 +1452,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
             caches, tmax + NEW_TOKENS - 2, last, step_pos)),
     }
     del caches
+    part("step_traces")
 
     new_tokens = len(PROMPT_LENS) * t["decode_steps"]
     line = {"phase": f"serve_{arch_name}", "arch": arch_name,
@@ -1438,7 +1479,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
             "logit_atol_depth": depth,
             "decode_err_bf16_spacings": decode_err / bf16_spacing(peak),
             "greedy_tokens_equal_full_forward": greedy_agree,
-            "forward_step_ms": steps,
+            "forward_step_ms": steps, "parts_s": parts,
             "sample": outs[j][:8]}
     if fp32 is not None:
         line["fp32_weights"] = fp32
@@ -2112,22 +2153,52 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
     return line
 
 
-def phase_train_remat(arch_name: str, batch: int, unpolicied: dict):
+class _Dropped:
+    """Counts, call by call, the assignments that ``layers.moe_dispatch``
+    (no mesh) or ``layers.moe_dispatch_sharded`` (a mesh) drops past their
+    expert's capacity, while the ``with`` block runs."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.dropped = layers, []
+        self.orig = layers.moe_dispatch, layers.moe_dispatch_sharded
+
+        def wrap(fn, keep_at):
+            def counted(*args, **kw):
+                out = fn(*args, **kw)
+                self.dropped.append(int((~out[keep_at]).sum()))
+                return out
+            return counted
+        layers.moe_dispatch = wrap(self.orig[0], 3)
+        layers.moe_dispatch_sharded = wrap(self.orig[1], 3)
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_dispatch, self.layers.moe_dispatch_sharded = self.orig
+
+
+def phase_train_remat(arch_name: str, batch: int, unpolicied=None,
+                      strategy: str = "fsdp_tp", layers=None):
     """Training under a sharding policy with remat: a 1x1 mesh of the card
     (``launch.mesh.card_group``, a one-rank NCCL group),
-    ``make_policy(mesh, strategy="fsdp_tp", remat="full")`` and
+    ``make_policy(mesh, strategy=strategy, remat="full")`` and
     ``launch.specs.make_train_step``, the parameters, optimizer state and
     batches DTensors placed by ``param_specs`` / ``batch_specs``: the
-    published configuration, ``batch`` x TRAIN_T tokens a step at once (no
-    microbatches), TRAIN_REMAT_STEPS steps of the ``SyntheticLM`` stream
-    from the seeds ``train`` uses. Launch counts from 0 just before the
-    steps and read just after: a step launches the forward kernel twice a
-    layer (forward, then the recompute) and the backward once, every
-    backward on its family's tensor-core body. Then ``_step_ms`` times and
-    traces more steps (busy and idle share). ``unpolicied`` is the line of
-    the same architecture's ``phase_train``: its first loss (same seed,
-    same first batch) and its peak memory and step walls sit beside this
-    phase's. Returns the line."""
+    published configuration (with ``layers``, its width cut to that many
+    layers), ``batch`` x TRAIN_T tokens a step at once (no microbatches),
+    TRAIN_REMAT_STEPS steps of the ``SyntheticLM`` stream from the seeds
+    ``train`` uses. Launch counts from 0 just before the steps and read
+    just after: a step launches the forward kernel twice a layer (forward,
+    then the recompute) and the backward once, every backward on its
+    family's tensor-core body. Then ``_step_ms`` times and traces more
+    steps (busy and idle share). ``unpolicied`` is the line of the same
+    architecture's ``phase_train``: its first loss (same seed, same first
+    batch) and its peak memory and step walls sit beside this phase's.
+    Without one (an MoE model too large to train unpolicied beside it), an
+    unpolicied ``loss_fn`` on the same parameters and first batch gives the
+    loss the first step's is held to, and the assignments each MoE layer
+    drops past capacity in that forward and in the first step's are
+    counted (``_Dropped``). Returns the line."""
     import torch
     from repro_torch.data import PipelineConfig, SyntheticLM
     from repro_torch.kernels import ops
@@ -2135,8 +2206,13 @@ def phase_train_remat(arch_name: str, batch: int, unpolicied: dict):
     from repro_torch.launch.sharding import (batch_specs, distribute_tree,
                                              make_policy, param_specs)
     from repro_torch.launch.specs import make_optimizer, make_train_step
-    from repro_torch.models import get_arch, init_params
+    from repro_torch.models import get_arch, init_params, loss_fn
+    from repro_torch.optim import tree_map
     arch = get_arch(arch_name)
+    reduced = []
+    if layers is not None:
+        reduced.append(f"n_layers {arch.n_layers} -> {layers}")
+        arch = dataclasses.replace(arch, n_layers=layers)
     fwd, bwd, _, _, body, _ = TRAIN_KERNELS[arch.family]
     steps = TRAIN_REMAT_STEPS
     source = SyntheticLM(PipelineConfig(global_batch=batch, seq_len=TRAIN_T,
@@ -2147,9 +2223,10 @@ def phase_train_remat(arch_name: str, batch: int, unpolicied: dict):
         return {k: st.get(k, 0) for k in ALLOC_COUNTERS}
 
     torch.cuda.empty_cache()
+    plain = None
     with card_group():
         mesh = make_mesh((1, 1), ("data", "model"))
-        policy = make_policy(mesh, strategy="fsdp_tp", remat="full")
+        policy = make_policy(mesh, strategy=strategy, remat="full")
 
         def batch_at(i):
             b = {k: torch.from_numpy(v.copy()).to(DEVICE)
@@ -2158,7 +2235,17 @@ def phase_train_remat(arch_name: str, batch: int, unpolicied: dict):
         params = init_params(torch.Generator(device=DEVICE).manual_seed(0),
                              arch)
         params = distribute_tree(
-            mesh, param_specs(params, arch, mesh, "fsdp_tp"), params)
+            mesh, param_specs(params, arch, mesh, strategy), params)
+        n_params = sum(t.numel() for t in _leaves(params))
+        if unpolicied is None:
+            # the same parameters and batch, no policy: on a 1x1 mesh each
+            # DTensor's local tensor is the whole tensor
+            b = batch_at(0)
+            with torch.no_grad(), _Dropped() as seen:
+                plain = float(loss_fn(tree_map(lambda t: t.to_local(), params),
+                                      arch, {k: v.to_local()
+                                             for k, v in b.items()}))
+            plain_dropped = seen.dropped
         optimizer = make_optimizer(arch, total_steps=steps)
         opt = optimizer.init(params)
         step_fn = make_train_step(arch, policy, optimizer)
@@ -2171,7 +2258,13 @@ def phase_train_remat(arch_name: str, batch: int, unpolicied: dict):
             sync()
             before = alloc_counts()
             t0 = time.perf_counter()
-            params, opt, _, metrics = step_fn(params, opt, i, b)
+            if i == 0:
+                with _Dropped() as seen:
+                    params, opt, _, metrics = step_fn(params, opt, i, b)
+                # the forward's calls, one a MoE layer, then the recompute's
+                step_dropped = seen.dropped[:len(seen.dropped) // 2]
+            else:
+                params, opt, _, metrics = step_fn(params, opt, i, b)
             sync()
             walls.append(time.perf_counter() - t0)
             after = alloc_counts()
@@ -2188,7 +2281,8 @@ def phase_train_remat(arch_name: str, batch: int, unpolicied: dict):
     tokens = batch * TRAIN_T
     steady = statistics.median(walls[1:])
     line = {"phase": f"train_remat_{arch_name}", "arch": arch_name,
-            "layers": arch.n_layers, "mesh": [1, 1],
+            "layers": arch.n_layers, "reduced": reduced,
+            "d_model": arch.d_model, "params": n_params, "mesh": [1, 1],
             "policy": policy.describe(), "steps": steps,
             "global_batch": batch, "microbatch": 1, "seq_len": TRAIN_T,
             "first_step_s": walls[0], "step_s": walls[1:],
@@ -2197,17 +2291,31 @@ def phase_train_remat(arch_name: str, batch: int, unpolicied: dict):
             "peak_memory_gb": peak_gb, "losses": losses,
             "launches": launches, "launches_per_step": per_step,
             "backward_launches_by_body": by_body,
+            "note": "peak_memory_gb: from after the parameters and optimizer "
+                    "state are placed, over the TRAIN_REMAT_STEPS steps; "
+                    "traced_steps: _step_ms over more steps of the same "
+                    "batch (wall median of 2, one traced)"}
+    if unpolicied is not None:
+        line.update({
             "unpolicied": {k: unpolicied[k] for k in (
                 "global_batch", "microbatch", "step_median_s",
                 "tokens_per_s", "peak_memory_gb")},
             "unpolicied_first_loss": unpolicied["losses"][0],
             "first_loss_rel_diff": abs(losses[0] - unpolicied["losses"][0])
-            / abs(unpolicied["losses"][0]),
-            "note": "peak_memory_gb: from after the parameters and optimizer "
-                    "state are placed, over the TRAIN_REMAT_STEPS steps; "
-                    "traced_steps: _step_ms over more steps of the same "
-                    "batch (wall median of 2, one traced); unpolicied: the "
-                    "same architecture's train_ phase in this run"}
+            / abs(unpolicied["losses"][0])})
+        line["note"] += "; unpolicied: the same architecture's train_ phase " \
+                        "in this run"
+    else:
+        line.update({
+            "unpolicied_loss_fn": plain,
+            "first_loss_rel_diff": abs(losses[0] - plain) / abs(plain),
+            "first_loss_bit_equal": losses[0] == plain,
+            "moe_overflowing_assignments": {"policy": step_dropped,
+                                            "unpolicied": plain_dropped},
+            "experts": arch.n_experts, "top_k": arch.top_k,
+            "capacity_factor": arch.capacity_factor})
+        line["note"] += "; unpolicied_loss_fn: loss_fn without a policy on " \
+                        "the first step's parameters and batch"
     emit(line)
     check(all(math.isfinite(x) for x in losses), f"remat: losses {losses}")
     check(per_step[fwd] == 2 * arch.n_layers and
@@ -2217,6 +2325,14 @@ def phase_train_remat(arch_name: str, batch: int, unpolicied: dict):
     check(by_body[body] == launches[bwd],
           f"remat: the backward ran {by_body}, not the {body} body every "
           f"time")
+    if unpolicied is None:
+        check(line["first_loss_rel_diff"] <= TRAIN_MOE_TOL,
+              f"remat: first loss {losses[0]} off the unpolicied loss_fn's "
+              f"{plain} by more than {TRAIN_MOE_TOL} relative")
+        check(step_dropped == plain_dropped and len(plain_dropped) ==
+              arch.n_layers - arch.n_dense_layers,
+              f"remat: MoE layers dropped {step_dropped} assignments under "
+              f"the policy, {plain_dropped} without")
     return line
 
 
@@ -2554,6 +2670,81 @@ def phase_planner() -> None:
           "terms": rep.artifact, "memo": rep.memo_stats, "wall_s": wall_s})
 
 
+EXAMPLES = ("quickstart", "serve_programs", "plan_distributed", "serve_lm",
+            "train_lm")
+
+
+def phase_examples(root: Path) -> None:
+    """Each example's twin (``examples/<name>_torch.py``) through its
+    ``main()`` on the card, as a user runs it (its printed lines captured):
+    one line a twin with its wall time, the kernel launches it made and
+    the figures it returns, then what the reference example checks.
+    quickstart: identical results in every program, a plan-cache hit, and
+    the join/prefetch flip after ``analyze()``; serve_programs: 0 memo runs
+    in session B, the drift flip from join to prefetch, the compiled
+    tier's outputs equal to the interpreter's, the hot shard flagged;
+    plan_distributed: three reports a cell; serve_lm: every request's 24
+    tokens; train_lm: finite losses that fall over the default 200 steps
+    (its checkpoints in a directory removed after)."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ops
+    figures = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_torch", root / "examples" / f"{name}_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = []
+        if name == "train_lm":
+            ckpt = tempfile.mkdtemp(prefix="train_lm_")
+            argv = ["--ckpt-dir", ckpt]
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            fig = mod.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in ops.launch_counts().items() if n}
+        if name == "train_lm":
+            shutil.rmtree(ckpt, ignore_errors=True)
+        figures[name] = fig
+        if name == "serve_lm":
+            fig = {k: v for k, v in fig.items() if k != "completions"}
+        emit({"phase": f"example_{name}", "wall_s": wall,
+              "printed_lines": len(out.getvalue().splitlines()),
+              "launches": launches, "figures": fig})
+
+    qs = figures["quickstart"]
+    check(all(c["identical"] and c["cache_hits"] >= 1 for c in qs["cells"]),
+          f"quickstart: {qs['cells']}")
+    check(qs["analyze_flip"]["flipped"] and qs["analyze_flip"]["recompiled"],
+          f"quickstart: no join/prefetch flip after analyze(): "
+          f"{qs['analyze_flip']}")
+    sp = figures["serve_programs"]
+    check(sp["store"]["session_b_memo_runs"] == 0,
+          f"serve_programs: session B ran {sp['store']}")
+    check(sp["drift"]["p0_prefetch"], f"serve_programs: {sp['drift']}")
+    ct = sp["compiled_tier"]
+    check(ct["identical"] and ct["tiers"][0] == "interpreter"
+          and ct["tiers"][-1] == "compiled", f"serve_programs: {ct}")
+    check(sp["cluster"]["hot_shard_requests"] == 48,
+          f"serve_programs: {sp['cluster']}")
+    check(all(len(r) == 3 for r in figures["plan_distributed"].values()),
+          "plan_distributed: not three reports a cell")
+    lm = figures["serve_lm"]
+    check(lm["new_tokens"] == lm["requests"] * 24 and
+          all(len(c) == 24 for c in lm["completions"]),
+          f"serve_lm: {lm['new_tokens']} tokens")
+    tr = figures["train_lm"]
+    check(tr["finite"] and tr["last_loss"] < tr["first_loss"],
+          f"train_lm: loss {tr['first_loss']} -> {tr['last_loss']}")
+
+
 def _busy_union_ms(prof) -> float:
     """The union of the intervals in which a ``torch.profiler`` trace saw
     the card run a kernel, copy or fill, in ms (each instant counted once
@@ -2693,7 +2884,10 @@ def _step_ms(fn, reps: int = 3, calls: int = 2):
     ``TRACE_TRIES`` traces that are not, busy, the idle share and the
     event count are None ("not measured") and ``trace_note`` gives the
     last trace's faults. The idle share is the part of the wall time the
-    card ran nothing."""
+    card ran nothing. The host's op events, which nothing here reads,
+    make parsing the trace of a host-bound prefill slow (zamba2's 34,000
+    ops a call: about a minute with the tries), but without them that
+    trace missed kernels in one run of two."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     sync()
@@ -2776,8 +2970,12 @@ class _Timer:
         (the write flush leaves ~50 MB of dirty lines, whose write-back a
         streaming call pays for as it evicts them)."""
         import torch
-        for _ in range(3):
+        # warm up: 3 calls, or fewer where they outlast TRACE_WARM_S (the
+        # plain versions that take a second)
+        t0, n = time.perf_counter(), 0
+        while n < 3 and (n == 0 or time.perf_counter() - t0 < TRACE_WARM_S):
             fn()
+            n += 1
         times = []
         for _ in range(reps):
             if clean:
@@ -3236,7 +3434,11 @@ def main() -> int:
           f"remat: first loss {remat['losses'][0]} off the microbatched "
           f"phase's {rwkv['losses'][0]} by more than "
           f"{TRAIN_REMAT_RWKV_TOL} relative")
+    # the MoE layer under a policy (its checks inside)
+    phase_train_remat(TRAIN_MOE_ARCH, TRAIN_MOE_BATCH,
+                      strategy="fsdp_tp_ep", layers=TRAIN_MOE_LAYERS)
     phase_planner()
+    phase_examples(root)
     timer = _Timer()
     entries += lm_kernel_entries(timer, attn, scan_launches, scan_shapes)
     entries += train_kernel_entries(timer,

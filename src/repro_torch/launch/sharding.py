@@ -140,11 +140,17 @@ class MeshPolicy:
     def cs(self, x, name: str):
         """The sharding constraint: a DTensor redistributed to the rule's
         placements (after ``_divisible``); a plain tensor unchanged."""
-        spec = self.rules.get(name)
-        if spec is None or not isinstance(x, DTensor):
+        if name not in self.rules or not isinstance(x, DTensor):
             return x
-        spec = _divisible(x.shape, spec, self.mesh)
-        return x.redistribute(self.mesh, placements(spec, self.mesh))
+        return x.redistribute(self.mesh, self.placements_for(name, x.shape))
+
+    def placements_for(self, name: str, shape) -> Tuple[Placement, ...]:
+        """The placements ``cs`` gives a tensor of ``shape`` under the rule
+        ``name``; every mesh dim replicated where there is no such rule."""
+        spec = self.rules.get(name)
+        if spec is None:
+            return (Replicate(),) * self.mesh.ndim
+        return placements(_divisible(shape, spec, self.mesh), self.mesh)
 
     def describe(self) -> dict:
         return {"strategy": self.strategy, "remat": self.remat,

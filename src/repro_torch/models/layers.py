@@ -370,65 +370,169 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return p
 
 
+def _route(router: torch.Tensor, xf: torch.Tensor, cfg: ArchConfig,
+           gate_idx: Optional[torch.Tensor] = None):
+    """The fp32 router softmax of the tokens ``xf`` (n, d) and each token's
+    k gates, renormalised, with their experts: ``(probs, gate_vals,
+    gate_idx)``. ``jax.lax.top_k`` breaks ties towards the lower expert
+    index, which ``torch.topk`` does not promise: the top k come from a
+    stable descending sort. A given ``gate_idx`` (n, k) replaces the top
+    k (the router's probabilities there still give the gates)."""
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+    if gate_idx is None:
+        gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                         stable=True)
+        k = cfg.top_k
+        gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
+    else:
+        gate_vals = probs.gather(1, gate_idx)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def moe_capacity(n: int, cfg: ArchConfig) -> int:
+    """Each expert's rows for ``n`` tokens: ``max(8, ceil(n·k / E · cf))``."""
+    return int(max(8, math.ceil(n * cfg.top_k / cfg.n_experts
+                                * cfg.capacity_factor)))
+
+
+def _stable_rank(key: torch.Tensor, n_keys: int) -> torch.Tensor:
+    """Each element's rank among the elements of its key (0..n_keys-1) in
+    their order: its position in a stable sort by key."""
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    seg_start = torch.searchsorted(
+        sorted_key, torch.arange(n_keys, dtype=key.dtype, device=key.device))
+    pos_sorted = torch.arange(key.numel(), device=key.device) \
+        - seg_start[sorted_key]
+    return torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+
+
+def _slots(flat_expert, pos, cap: int, E: int):
+    """``keep`` and ``dst``: whether each assignment fits its expert's
+    capacity, and its row of the (E·cap + 1, d) buffer, the last row
+    taking every overflowing assignment."""
+    keep = pos < cap
+    dst = torch.where(keep, flat_expert * cap + pos,
+                      torch.full_like(pos, E * cap))
+    return keep, dst
+
+
 def moe_dispatch(params: Params, xf: torch.Tensor, cfg: ArchConfig,
                  gate_idx: Optional[torch.Tensor] = None):
     """The reference's top-k routing and capacity dispatch of the tokens
     ``xf`` (n, d). Returns ``(probs, gate_vals, flat_expert, keep, dst,
     cap)``: the fp32 router softmax (n, E); each token's k gates,
     renormalised (n, k); each (token, slot)'s expert (n·k,); whether it
-    fits its expert's capacity ``cap = max(8, ceil(n·k / E · cf))``; and
-    its row of the (E·cap + 1, d) buffer, the last row taking every
-    overflowing assignment. ``gate_idx`` (n, k), when given, routes the
-    tokens to those experts in place of the router's top k (the router's
-    probabilities there still give the gates): a replay of another call's
-    routing.
+    fits its expert's capacity (:func:`moe_capacity`); and its row of the
+    (E·cap + 1, d) buffer, the last row taking every overflowing
+    assignment. ``gate_idx`` (n, k), when given, routes the tokens to
+    those experts in place of the router's top k: a replay of another
+    call's routing (:func:`_route`).
 
     The position of an assignment within its expert is its rank in a
     stable sort by expert, so an expert keeps its first ``cap``
     assignments in token order, as the reference's (stable) ``jnp.argsort``
-    does. ``jax.lax.top_k`` breaks ties towards the lower expert index,
-    which ``torch.topk`` does not promise: the top k come from a stable
-    descending sort."""
-    n = xf.shape[0]
-    E, k = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(xf.float() @ params["router"].float(), dim=-1)
-    if gate_idx is None:
-        gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
-                                         stable=True)
-        gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
-    else:
-        gate_vals = probs.gather(1, gate_idx)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    cap = int(max(8, math.ceil(n * k / E * cfg.capacity_factor)))
+    does."""
+    E = cfg.n_experts
+    probs, gate_vals, gate_idx = _route(params["router"], xf, cfg, gate_idx)
+    cap = moe_capacity(xf.shape[0], cfg)
     flat_expert = gate_idx.reshape(-1)
-    order = torch.argsort(flat_expert, stable=True)
-    sorted_e = flat_expert[order]
-    seg_start = torch.searchsorted(
-        sorted_e, torch.arange(E, dtype=sorted_e.dtype, device=xf.device))
-    pos_sorted = torch.arange(n * k, device=xf.device) - seg_start[sorted_e]
-    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
-    keep = pos < cap
-    dst = torch.where(keep, flat_expert * cap + pos,
-                      torch.full_like(pos, E * cap))
+    keep, dst = _slots(flat_expert, _stable_rank(flat_expert, E), cap, E)
     return probs, gate_vals, flat_expert, keep, dst, cap
 
 
-def on_replicas(fn, *args):
-    """``fn(*args)``; with DTensor arguments, every rank runs ``fn`` on full
-    (gathered) copies and the tensors it returns are replicated DTensors.
-    For ops that DTensor has no sharding rules for (MoE routing's sorts,
-    searches, index writes and counts)."""
-    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
-                None)
-    if mesh is None:
-        return fn(*args)
-    rep = [Replicate()] * mesh.ndim
-    out = fn(*(a.redistribute(mesh, rep).to_local()
-               if isinstance(a, DTensor) else a for a in args))
-    wrap = lambda o: DTensor.from_local(  # noqa: E731
-        o, mesh, rep, run_check=False) if isinstance(o, torch.Tensor) else o
-    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over the mesh dims ``dims``. The sum is replicated
+    over them, so each rank's gradient of its own term is the sum's: the
+    backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        return _all_reduce(t, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _SumGradOver(torch.autograd.Function):
+    """The identity on a tensor replicated over the mesh dims ``dims``
+    whose uses on each rank make only a part of its gradient: the backward
+    all-reduces the parts."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh, ctx.dims), None, None
+
+
+def _all_reduce(t, mesh, dims):
+    from torch.distributed import _functional_collectives as funcol
+    for i in dims:
+        t = funcol.all_reduce(t.contiguous(), "sum", (mesh, i))
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+def _mesh_dims(mesh, pl, test) -> Tuple[int, ...]:
+    """The mesh dims of more than one rank whose placement passes ``test``."""
+    return tuple(i for i, p in enumerate(pl) if test(p) and mesh.size(i) > 1)
+
+
+def moe_dispatch_sharded(router: torch.Tensor, x: DTensor, cfg: ArchConfig):
+    """:func:`moe_dispatch` under a mesh, on this rank's own tokens only.
+    ``x`` (B, T, d) is a DTensor sharded at most on its batch and sequence
+    dims; ``router`` the full (d, E) router, a plain tensor. Returns
+    ``(probs, gate_vals, flat_expert, keep, dst, cap, load)`` for the
+    rank's ``n_l`` tokens in their order: ``dst`` numbers the rows of the
+    GLOBAL (E·cap + 1, d) buffer, ``cap`` is the global batch's, and
+    ``load`` (E,) counts every rank's assignments to each expert.
+
+    An assignment's position within its expert is its rank among ALL the
+    tokens' assignments to that expert in token order, as in one process:
+    each rank counts its assignments per (batch row, expert), the counts
+    of every rank are gathered (E integers a row), and a row's offset for
+    expert e is the count of e over the rows before it in the global
+    token order (under sequence sharding a batch row's sequence shards
+    follow each other). So the same assignments overflow as in one
+    process. Every exchanged shape is fixed by the shapes alone."""
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    xl = x.to_local()
+    B_l, T_l = xl.shape[:2]
+    n_l = B_l * T_l
+    probs, gate_vals, gate_idx = _route(router, xl.reshape(n_l, d), cfg)
+    flat_expert = gate_idx.reshape(-1)
+    row = torch.arange(n_l * k, device=xl.device) // (T_l * k)
+    key = row * E + flat_expert
+    own = torch.zeros(B_l * E, dtype=key.dtype, device=key.device) \
+        .scatter_add_(0, key, torch.ones_like(key)).view(B_l, 1, E)
+    # every rank's rows in global token order: (B, sequence shards, E)
+    counts = DTensor.from_local(own, mesh, pl, run_check=False).full_tensor()
+    runs = counts.view(-1, E)
+    offsets = DTensor.from_local(
+        (runs.cumsum(0) - runs).view(counts.shape), mesh,
+        (Replicate(),) * mesh.ndim, run_check=False
+    ).redistribute(mesh, pl).to_local().reshape(B_l * E)
+    cap = moe_capacity(B * T, cfg)
+    pos = offsets[key] + _stable_rank(key, B_l * E)
+    keep, dst = _slots(flat_expert, pos, cap, E)
+    return probs, gate_vals, flat_expert, keep, dst, cap, runs.sum(0)
+
+
+def _experts(params: Params, buf, cfg: ArchConfig, pol):
+    """The experts' SwiGLU on their (E, cap, d) rows: two batched products."""
+    gu = torch.bmm(buf, params["w_in"])
+    g, u = torch.chunk(gu, 2, dim=-1)
+    h = act_fn(cfg.act)(g.float()).to(buf.dtype) * u
+    return pol.cs(torch.bmm(h, params["w_out"]), "moe_ecd")
 
 
 def moe(params: Params, x: torch.Tensor, cfg: ArchConfig, pol=NULL_POLICY):
@@ -437,52 +541,106 @@ def moe(params: Params, x: torch.Tensor, cfg: ArchConfig, pol=NULL_POLICY):
     experts run as two batched products, and each token gathers its
     outputs weighted by its renormalised gates; overflowing assignments
     are dropped (Switch-style). Adds the shared expert. Returns (y, the
-    Switch load-balance aux loss ``E * sum_e f_e p_e``). Under a mesh the
-    routing, the scatter and the gather run :func:`on_replicas`, the
-    expert products on the ``moe_ecd`` rule's shards."""
+    Switch load-balance aux loss ``E * sum_e f_e p_e``). Under a mesh,
+    :func:`_moe_sharded`."""
+    if isinstance(x, DTensor):
+        return _moe_sharded(params, x, cfg, pol)
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = B * T
     xf = x.reshape(n, d)
-    probs, gate_vals, flat_expert, keep, dst, cap = on_replicas(
-        lambda router, xf: moe_dispatch({"router": router}, xf, cfg),
-        params["router"], xf)
-
-    def scatter(xf, dst):
-        # every buffer row but the trash row (the last) is written at most
-        # once
-        buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
-        buf[dst] = xf.repeat_interleave(k, dim=0)
-        return buf[:-1]
-    buf = pol.cs(on_replicas(scatter, xf, dst).view(E, cap, d), "moe_ecd")
-
-    gu = torch.bmm(buf, params["w_in"])
-    g, u = torch.chunk(gu, 2, dim=-1)
-    h = act_fn(cfg.act)(g.float()).to(x.dtype) * u
-    out = pol.cs(torch.bmm(h, params["w_out"]), "moe_ecd")
-
-    def combine(out, dst, gate_vals, keep):
-        out_flat = torch.cat([out.reshape(E * cap, d),
-                              torch.zeros((1, d), dtype=out.dtype,
-                                          device=x.device)])
-        w = (gate_vals.reshape(-1) * keep).to(x.dtype)
-        return (out_flat[dst] * w[:, None]).view(n, k, d).sum(dim=1)
-    y = on_replicas(combine, out, dst, gate_vals, keep)
+    probs, gate_vals, flat_expert, keep, dst, cap = moe_dispatch(params, xf,
+                                                                 cfg)
+    # every buffer row but the trash row (the last) is written at most once
+    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[dst] = xf.repeat_interleave(k, dim=0)
+    out = _experts(params, pol.cs(buf[:-1].view(E, cap, d), "moe_ecd"), cfg,
+                   pol)
+    out_flat = torch.cat([out.reshape(E * cap, d),
+                          torch.zeros((1, d), dtype=out.dtype,
+                                      device=x.device)])
+    w = (gate_vals.reshape(-1) * keep).to(x.dtype)
+    y = (out_flat[dst] * w[:, None]).view(n, k, d).sum(dim=1)
     if cfg.n_shared_experts:
         y = y + mlp(params["shared"], xf, cfg.act)
 
     me = probs.mean(dim=0)
     # bincount(minlength=E) as a scatter-add (meta tensors have no
     # bincount: its size depends on the data)
-    ce = on_replicas(lambda fe: torch.zeros(E, dtype=fe.dtype,
-                                            device=fe.device).scatter_add_(
-        0, fe, torch.ones_like(fe)), flat_expert).float() / (n * k)
+    ce = torch.zeros(E, dtype=flat_expert.dtype, device=x.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert)).float() / (n * k)
     aux = E * torch.sum(me * ce)
-    if isinstance(y, DTensor):
-        # back to the tokens' own shards, which the view to (B, T, d) splits
-        # evenly (the shared expert's can shard n over more ranks than B)
-        y = y.redistribute(xf.device_mesh, xf.placements)
     return pol.cs(y.view(B, T, d), "act_btd"), aux
+
+
+def _moe_sharded(params: Params, x: DTensor, cfg: ArchConfig, pol):
+    """:func:`moe` on a mesh, each rank routing only its own tokens.
+
+    The tokens are sharded on the mesh's token dims (data: x's batch or
+    sequence shards) and replicated on its expert dims (model: the dims on
+    which the ``moe_ecd`` rule shards the experts). A rank routes its
+    ``n/D`` tokens (:func:`moe_dispatch_sharded`), writes those bound for
+    its own ``E/M`` experts into its (E/M, cap, d) block, and the blocks of
+    the token dims are summed (each global row is written by one token):
+    the ``moe_ecd`` shard, which the expert products take as a DTensor.
+    Each rank then gathers its tokens' rows from its experts' outputs,
+    weighted by their gates, and a sum over the expert dims completes
+    ``y``; ``aux`` comes from the global means (sums of local parts). The
+    exchanges are an all-reduce of (E/M, cap, d) over the token dims, one
+    of (n/D, d) over the expert dims, and the per-row counts: no rank
+    holds the global tokens, ``dst`` or (E, cap, d) buffer (unless the
+    rule leaves the experts replicated). The custom autograd functions
+    sum each gradient that a rank sees only in part."""
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    mesh = x.device_mesh
+    cap = moe_capacity(B * T, cfg)
+    e_pl = pol.placements_for("moe_ecd", (E, cap, d))
+    x_pl = tuple(p if p.is_shard() and p.dim in (0, 1) and not e.is_shard(0)
+                 else Replicate() for p, e in zip(x.placements, e_pl))
+    if x_pl != tuple(x.placements):
+        x = x.redistribute(mesh, x_pl)
+    tok = _mesh_dims(mesh, x_pl, lambda p: p.is_shard())
+    exp = _mesh_dims(mesh, e_pl, lambda p: p.is_shard(0))
+
+    router = _SumGradOver.apply(params["router"].full_tensor(), mesh, tok)
+    probs, gate_vals, flat_expert, keep, dst, _, load = \
+        moe_dispatch_sharded(router, x, cfg)
+    xl = x.to_local()
+    n_l = xl.shape[0] * xl.shape[1]
+    # this rank's block of experts (its shards nested left to right)
+    e0, E_l = 0, E
+    for i in exp:
+        E_l //= mesh.size(i)
+        e0 += mesh.get_local_rank(i) * E_l
+    mine = keep & (flat_expert >= e0) & (flat_expert < e0 + E_l)
+    rows = torch.where(mine, dst - e0 * cap, torch.full_like(dst, E_l * cap))
+
+    buf = torch.zeros((E_l * cap + 1, d), dtype=x.dtype, device=xl.device)
+    buf[rows] = _SumGradOver.apply(xl.reshape(n_l, d), mesh,
+                                   exp).repeat_interleave(k, dim=0)
+    buf = _SumOver.apply(buf[:-1].view(E_l, cap, d), mesh, tok)
+    out = _experts(params, DTensor.from_local(buf, mesh, e_pl,
+                                              run_check=False), cfg, pol)
+    out = _SumGradOver.apply(out.redistribute(mesh, e_pl).to_local(), mesh,
+                             tok)
+    out_flat = torch.cat([out.reshape(E_l * cap, d),
+                          torch.zeros((1, d), dtype=out.dtype,
+                                      device=xl.device)])
+    w = (_SumGradOver.apply(gate_vals, mesh, exp).reshape(-1)
+         * mine).to(x.dtype)
+    y = (out_flat[rows] * w[:, None]).view(n_l, k, d).sum(dim=1)
+    y = _SumOver.apply(y.view(xl.shape), mesh, exp)
+    y = DTensor.from_local(y, mesh, x_pl, run_check=False)
+    if cfg.n_shared_experts:
+        y = y + mlp(params["shared"], x.reshape(B * T, d), cfg.act).view(
+            B, T, d)
+
+    me = _SumOver.apply(probs.sum(dim=0), mesh, tok) / (B * T)
+    aux = E * torch.sum(me * (load.float() / (B * T * k)))
+    aux = DTensor.from_local(aux, mesh, (Replicate(),) * mesh.ndim,
+                             run_check=False)
+    return pol.cs(y, "act_btd"), aux
 
 
 # --------------------------------------------------------------------------

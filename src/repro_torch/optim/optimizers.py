@@ -121,12 +121,22 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         bc2 = _f32(1 - torch.tensor(b2, dtype=torch.float32) ** stepf)
 
         def upd(g, m, v, p):
+            # the formula's operations in its order, each temporary
+            # reused in place: at most two fp32 copies of the leaf live
+            # at once (a card holds one layer of a 17B MoE model's leaves,
+            # 1.3 B elements, beside its moments)
             gf = g.float()
             m.mul_(b1).add_((1 - b1) * gf)
-            v.mul_(b2).add_((1 - b2) * torch.square(gf))
-            delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) \
-                + weight_decay * p.float()
-            return (-lr_t * delta).to(p.dtype)
+            sq = torch.square(gf)
+            del gf
+            v.mul_(b2).add_(sq.mul_(1 - b2))
+            del sq
+            delta = m / bc1
+            denom = torch.sqrt_(v / bc2).add_(eps)
+            delta.div_(denom)
+            del denom
+            delta.add_(p.to(torch.float32, copy=True).mul_(weight_decay))
+            return delta.mul_(-lr_t).to(p.dtype)
 
         with torch.no_grad():
             updates = tree_map(upd, grads, state["m"], state["v"], params)
