@@ -14,7 +14,9 @@ generation overlaps device compute.
 
 The port's own copy of ``repro.data.pipeline`` (numpy and threads, no
 tensors): the same (seed, index, rank, count) gives the reference's batch
-bit for bit. The trainer moves each batch to its device.
+bit for bit. The trainer moves each batch to its device. The time a
+consumer waits in ``Prefetcher.get`` is the program span ``data.wait``
+(attribute ``index``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from ..obs.trace import program_span
 
 __all__ = ["PipelineConfig", "SyntheticLM", "Prefetcher"]
 
@@ -109,7 +113,9 @@ class Prefetcher:
                 continue
 
     def get(self):
-        i, b = self._q.get()
+        with program_span("data.wait") as sp:
+            i, b = self._q.get()
+            sp.attrs["index"] = i
         self._next = i + 1
         return b
 

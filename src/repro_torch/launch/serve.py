@@ -37,6 +37,7 @@ import torch
 
 from ..models import forward, get_arch, init_params, make_caches
 from ..models.layers import NULL_POLICY
+from ..obs.trace import program_span
 from ..relational.table import resolve_device
 
 __all__ = ["ServeConfig", "Server", "main"]
@@ -62,7 +63,18 @@ class Server:
     After :meth:`generate`, ``step_logits`` holds each step's next-token
     logits (B, vocab) (the prefill's at each prompt's last position, then
     one per decode step) and ``timing`` the wall seconds of the prefill and
-    the decode steps (each ends when its tokens reach the host)."""
+    the decode steps (each ends when its tokens reach the host). The
+    benchmark's time-to-first-token check reads ``timing``, so it stays
+    beside the spans.
+
+    ``generate`` opens program spans (``obs.trace.program_span``), host
+    time only: one ``serve.decode`` a decode step (attribute ``t``),
+    holding ``serve.prep`` (its positions built and copied to the card),
+    ``serve.step`` (the enqueue of :meth:`_step`'s forward) and
+    ``serve.sample`` (argmax and the tokens to the host: the host blocked
+    on the card). ``serve.step`` opens in :meth:`_step`, so the prefill's
+    step has one too; its ``phase`` tells them apart (``prefill`` or
+    ``decode``)."""
 
     def __init__(self, cfg: ServeConfig, params=None, device=None):
         self.cfg = cfg
@@ -77,9 +89,12 @@ class Server:
         self.timing = {}
 
     def _step(self, caches, cache_index: int, tokens, positions):
-        logits, caches, _ = forward(self.params, self.arch, tokens, positions,
-                                    caches=caches, cache_index=cache_index,
-                                    pol=NULL_POLICY)
+        with program_span("serve.step") as sp:
+            sp.attrs["phase"] = "decode" if cache_index else "prefill"
+            logits, caches, _ = forward(self.params, self.arch, tokens,
+                                        positions, caches=caches,
+                                        cache_index=cache_index,
+                                        pol=NULL_POLICY)
         return logits, caches
 
     def generate(self, prompts: List[np.ndarray]) -> List[List[int]]:
@@ -114,15 +129,19 @@ class Server:
 
         cur = nxt[:, None]
         for t in range(cfg.max_new_tokens - 1):
-            step_pos = torch.tensor([[plens[i] + t] for i in range(B)],
-                                    dtype=torch.int32, device=dev)
-            logits, caches = self._step(caches, Tmax + t, cur, step_pos)
-            step = logits[:, -1]
-            self.step_logits.append(step)
-            nxt = torch.argmax(step, dim=-1).to(torch.int32)
-            for i, tok in enumerate(nxt.tolist()):
-                outs[i].append(tok)
-            cur = nxt[:, None]
+            with program_span("serve.decode") as sp:
+                sp.attrs["t"] = t
+                with program_span("serve.prep"):
+                    step_pos = torch.tensor([[plens[i] + t] for i in range(B)],
+                                            dtype=torch.int32, device=dev)
+                logits, caches = self._step(caches, Tmax + t, cur, step_pos)
+                with program_span("serve.sample"):
+                    step = logits[:, -1]
+                    self.step_logits.append(step)
+                    nxt = torch.argmax(step, dim=-1).to(torch.int32)
+                    for i, tok in enumerate(nxt.tolist()):
+                        outs[i].append(tok)
+                    cur = nxt[:, None]
         t2 = time.perf_counter()
         self.timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                        "decode_steps": cfg.max_new_tokens - 1}

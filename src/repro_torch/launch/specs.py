@@ -16,6 +16,12 @@ PLACE and returns them (the reference's trainer donates both to its jit).
 Under a ``MeshPolicy`` the parameters, optimizer state and batch are
 DTensors; the loss is reduced before the backward and returned, with the
 gradient norm, as plain tensors.
+
+A train step opens program spans (``obs.trace.program_span``), each with
+device marks: ``train.step`` (attributes ``step``, ``microbatches``)
+around ``train.forward`` and ``train.backward`` (``microbatch``) once a
+microbatch, and ``train.optimizer`` around ``train.clip``,
+``train.update`` and ``train.apply``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ..models import forward, init_params, loss_fn, make_caches
 from ..models.arch import ArchConfig
 from ..models.layers import NULL_POLICY
 from ..models.model import dtensor_region
+from ..obs.trace import program_span
 from ..optim.optimizers import (Optimizer, adafactor, adamw,
                                 clip_by_global_norm, tree_leaves, tree_map,
                                 warmup_cosine)
@@ -181,11 +188,15 @@ def _microbatch(v, i: int, nmb: int):
         v.device_mesh, ops.fit_shards(v, {0: (m,)}))
 
 
-def _grads(params, leaves, cfg, batch, policy):
+def _grads(params, leaves, cfg, batch, policy, microbatch: int = 0):
     """(loss, gradient of each leaf) of one batch."""
-    loss = _replicated(loss_fn(params, cfg, batch, pol=policy))
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                materialize_grads=True)
+    with program_span("train.forward", leaves[0]) as sp:
+        sp.attrs["microbatch"] = microbatch
+        loss = _replicated(loss_fn(params, cfg, batch, pol=policy))
+    with program_span("train.backward", leaves[0]) as sp:
+        sp.attrs["microbatch"] = microbatch
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), grads
 
 
@@ -200,8 +211,11 @@ def make_train_step(cfg: ArchConfig, policy=NULL_POLICY,
 
     def train_step(params, opt_state, step, batch: Dict[str, torch.Tensor]):
         leaves = tree_leaves(params)
-        with dtensor_region(isinstance(leaves[0], DTensor)):
-            return _step(params, leaves, opt_state, step, batch)
+        with program_span("train.step", leaves[0]) as sp:
+            sp.attrs["step"] = step
+            sp.attrs["microbatches"] = nmb
+            with dtensor_region(isinstance(leaves[0], DTensor)):
+                return _step(params, leaves, opt_state, step, batch)
 
     def _step(params, leaves, opt_state, step, batch):
         for p in leaves:
@@ -215,7 +229,7 @@ def make_train_step(cfg: ArchConfig, policy=NULL_POLICY,
                 loss = 0.0
                 for i in range(nmb):
                     mb = {k: _microbatch(v, i, nmb) for k, v in batch.items()}
-                    li, gi = _grads(params, leaves, cfg, mb, policy)
+                    li, gi = _grads(params, leaves, cfg, mb, policy, i)
                     for a, g in zip(acc, gi):
                         a.add_(g.float())
                     loss = loss + li
@@ -226,11 +240,15 @@ def make_train_step(cfg: ArchConfig, policy=NULL_POLICY,
                 p.requires_grad_(False)
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
-        updates, new_opt = optimizer.update(grads, opt_state, params, step)
-        with torch.no_grad():
-            for p, u in zip(leaves, tree_leaves(updates)):
-                p.copy_((p.float() + u.float()).to(p.dtype))
+        with program_span("train.optimizer", leaves[0]):
+            with program_span("train.clip", leaves[0]):
+                grads, gnorm = clip_by_global_norm(grads, 1.0)
+            with program_span("train.update", leaves[0]):
+                updates, new_opt = optimizer.update(grads, opt_state, params,
+                                                    step)
+            with program_span("train.apply", leaves[0]), torch.no_grad():
+                for p, u in zip(leaves, tree_leaves(updates)):
+                    p.copy_((p.float() + u.float()).to(p.dtype))
         metrics = {"loss": _replicated(loss), "grad_norm": _replicated(gnorm)}
         metrics = {k: v.to_local() if isinstance(v, DTensor) else v
                    for k, v in metrics.items()}

@@ -5,7 +5,10 @@ Four pieces, threaded through every tier of the framework:
   * :mod:`repro_torch.obs.trace` — nested wall+simulated-clock spans (compile →
     saturation rounds; serve → batch → site fetch → kernel invoke → swap
     verdicts), JSONL export, text flamegraph rendering; a no-op tracer by
-    default so the hot path pays only a branch;
+    default so the hot path pays only a branch; and the LM paths'
+    process-wide recorder ``PROGRAM`` (train step phases, data waits,
+    decode steps), recording while a ``torch.profiler`` records, or
+    always once :func:`program_tracing` says ``"on"``;
   * :mod:`repro_torch.obs.metrics` — labeled counters/gauges/histograms with
     ``snapshot()``/``diff()``; the legacy telemetry dicts are
     backwards-compatible views over per-component registries;
@@ -25,12 +28,14 @@ API layer, which itself imports ``obs.trace``/``obs.metrics``.
 
 from .metrics import MetricsRegistry, merge_snapshots, registry_counter
 from .render import fmt_seconds, markdown_table
-from .trace import NOOP_TRACER, NoopTracer, Span, Tracer
+from .trace import (NOOP_TRACER, PROGRAM, NoopTracer, ProgramRecorder, Span,
+                    Tracer, program_span, program_tracing)
 
 __all__ = [
     "MetricsRegistry", "registry_counter", "merge_snapshots",
     "fmt_seconds", "markdown_table",
-    "Tracer", "NoopTracer", "Span", "NOOP_TRACER",
+    "Tracer", "NoopTracer", "Span", "NOOP_TRACER", "ProgramRecorder",
+    "PROGRAM", "program_span", "program_tracing",
     "Signal", "scan_plan", "explain_plan", "TriageRow", "triage_fleet",
     "render_triage",
 ]

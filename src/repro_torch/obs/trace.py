@@ -3,44 +3,95 @@
 A :class:`Tracer` records a tree of :class:`Span`\\ s — compile → rule
 saturation rounds → costing; serve → batch → site fetch / cache hit →
 compiled-kernel invoke → swap verdicts. Each span carries wall time
-(``perf_counter``) and, when the caller passes a ``sim_clock`` callable
-(e.g. ``lambda: env.clock``), the simulated clock interval too. Export as
-JSONL (:meth:`Tracer.export_jsonl`) or render a text flamegraph-style tree
-(:meth:`Tracer.render`).
+(``perf_counter``), its ends on the profiler's clock (``time.time_ns()``,
+the clock ``torch.profiler`` stamps its trace with) and, when the caller
+passes a ``sim_clock`` callable (e.g. ``lambda: env.clock``), the
+simulated clock interval too. Export as JSONL (:meth:`Tracer.export_jsonl`)
+or render a text flamegraph-style tree (:meth:`Tracer.render`).
 
 The default everywhere is the module singleton :data:`NOOP_TRACER`: its
 ``span()`` returns a shared no-op handle, so an instrumented hot path pays
 one attribute load and a branch — nothing is allocated, nothing recorded.
 Hot inner loops guard event emission with ``if tracer.enabled:``.
+
+The LM paths (the train step of ``launch.specs``, ``launch.serve.Server``,
+``data.Prefetcher``) record into one process-wide recorder instead,
+:data:`PROGRAM`, through :func:`program_span`: whoever drives them (the
+benchmark, an operator's script) reads it afterwards without handing a
+tracer in. :func:`program_tracing` sets its mode:
+
+  * ``"profiler"`` (the default): a span records only if a
+    ``torch.profiler`` is recording when it opens, so a traced window
+    gets its spans and an untraced one pays one check a span;
+  * ``"on"``: every span records.
+
+A span opened with a tensor as ``mark`` also records a CUDA timing event
+on the current stream of that tensor's device at each end (drawn from a
+pool, never synchronized on the hot path); :attr:`Span.device_ms` reads
+the stream's time between them once the work is done. No span adds a
+``record_function`` range or any other event to a profiler's device
+trace. The recorder keeps the newest :data:`PROGRAM_CAPACITY` root
+spans, each with its children.
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import threading
 import time
 from typing import Callable, Dict, List, Optional
 
-__all__ = ["Span", "Tracer", "NoopTracer", "NOOP_TRACER"]
+import torch
+
+__all__ = ["Span", "Tracer", "NoopTracer", "NOOP_TRACER", "ProgramRecorder",
+           "PROGRAM", "PROGRAM_CAPACITY", "program_span", "program_tracing"]
 
 
 class Span:
-    __slots__ = ("name", "attrs", "wall_start", "wall_end",
-                 "sim_start", "sim_end", "children")
+    __slots__ = ("name", "attrs", "wall_start", "wall_end", "start_ns",
+                 "end_ns", "sim_start", "sim_end", "children", "_marks",
+                 "_device_ms")
 
     def __init__(self, name: str, attrs: Optional[Dict[str, object]] = None):
         self.name = name
         self.attrs: Dict[str, object] = attrs or {}
         self.wall_start: float = 0.0
         self.wall_end: Optional[float] = None
+        self.start_ns: int = 0                 # time.time_ns() at entry
+        self.end_ns: Optional[int] = None
         self.sim_start: Optional[float] = None
         self.sim_end: Optional[float] = None
         self.children: List["Span"] = []
+        self._marks = None      # (device index, start event, end event)
+        self._device_ms: Optional[float] = None
 
     @property
     def wall_s(self) -> float:
         end = self.wall_end if self.wall_end is not None \
             else time.perf_counter()
         return end - self.wall_start
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        """Milliseconds on the marked CUDA stream from the span's entry
+        mark to its exit mark: the device work enqueued in between plus
+        any idle inside. None for a span without marks (none asked for,
+        or not on a CUDA device) or still open. The first read waits for
+        the exit mark to complete, then returns both events to the pool."""
+        marks = self._marks
+        if marks is not None and marks[2] is not None:
+            index, start, end = marks
+            end.synchronize()
+            self._device_ms = start.elapsed_time(end)
+            self._marks = None
+            _EVENTS.give(index, start, end)
+        return self._device_ms
+
+    @device_ms.setter
+    def device_ms(self, ms: Optional[float]) -> None:
+        self._marks = None
+        self._device_ms = ms
 
     @property
     def sim_s(self) -> Optional[float]:
@@ -53,34 +104,48 @@ class Span:
 
 
 class _SpanHandle:
-    """Context manager entering/exiting one span on its tracer's stack."""
+    """Context manager entering/exiting one span on its tracer's stack;
+    with a tensor as ``mark``, the span's device marks on the current
+    stream of that tensor's device where it is a CUDA device (the host
+    stamps enclose the marks)."""
 
-    __slots__ = ("tracer", "span", "sim_clock")
+    __slots__ = ("tracer", "span", "sim_clock", "mark")
 
     def __init__(self, tracer: "Tracer", span: Span,
-                 sim_clock: Optional[Callable[[], float]]):
+                 sim_clock: Optional[Callable[[], float]],
+                 mark: Optional[torch.Tensor] = None):
         self.tracer = tracer
         self.span = span
         self.sim_clock = sim_clock
+        self.mark = mark
 
     def __enter__(self) -> Span:
-        t = self.tracer
-        parent = t._stack[-1] if t._stack else None
-        (parent.children if parent is not None else t.roots).append(self.span)
-        t._stack.append(self.span)
+        t, sp = self.tracer, self.span
+        stack = t._stack
+        (stack[-1].children if stack else t.roots).append(sp)
+        stack.append(sp)
         if self.sim_clock is not None:
-            self.span.sim_start = self.sim_clock()
-        self.span.wall_start = time.perf_counter()
-        return self.span
+            sp.sim_start = self.sim_clock()
+        sp.start_ns = time.time_ns()
+        sp.wall_start = time.perf_counter()
+        if self.mark is not None and self.mark.device.type == "cuda":
+            index = self.mark.device.index
+            sp._marks = (index, _mark(index), None)
+        return sp
 
     def __exit__(self, exc_type, exc, tb):
-        self.span.wall_end = time.perf_counter()
+        sp = self.span
+        marks = sp._marks
+        if marks is not None:
+            sp._marks = (marks[0], marks[1], _mark(marks[0]))
+        sp.wall_end = time.perf_counter()
+        sp.end_ns = time.time_ns()
         if self.sim_clock is not None:
-            self.span.sim_end = self.sim_clock()
+            sp.sim_end = self.sim_clock()
         stack = self.tracer._stack
         # robust to mismatched exits: pop until (and including) our span
         while stack:
-            if stack.pop() is self.span:
+            if stack.pop() is sp:
                 break
         return False
 
@@ -92,14 +157,13 @@ class Tracer:
     enabled = True
 
     def __init__(self):
-        self.roots: List[Span] = []
-        self._stack: List[Span] = []
+        self.reset()
 
     # ------------------------------------------------------------ recording
     def span(self, name: str,
              sim_clock: Optional[Callable[[], float]] = None,
-             **attrs) -> _SpanHandle:
-        return _SpanHandle(self, Span(name, attrs), sim_clock)
+             mark: Optional[torch.Tensor] = None, **attrs) -> _SpanHandle:
+        return _SpanHandle(self, Span(name, attrs), sim_clock, mark)
 
     def event(self, name: str,
               sim_clock: Optional[Callable[[], float]] = None,
@@ -110,17 +174,18 @@ class Tracer:
         sp = Span(name, attrs)
         now = time.perf_counter()
         sp.wall_start = sp.wall_end = now
+        sp.start_ns = sp.end_ns = time.time_ns()
         if sim is None and sim_clock is not None:
             sim = sim_clock()
         if sim is not None:
             sp.sim_start = sp.sim_end = sim
-        parent = self._stack[-1] if self._stack else None
-        (parent.children if parent is not None else self.roots).append(sp)
+        stack = self._stack
+        (stack[-1].children if stack else self.roots).append(sp)
         return sp
 
     def reset(self) -> None:
-        self.roots = []
-        self._stack = []
+        self.roots: List[Span] = []
+        self._stack: List[Span] = []
 
     # ------------------------------------------------------------ inspection
     def well_nested(self) -> bool:
@@ -170,9 +235,12 @@ class Tracer:
             rec: Dict[str, object] = {
                 "id": sid, "parent": parent_id, "depth": depth,
                 "name": sp.name, "wall_s": sp.wall_s,
+                "start_ns": sp.start_ns, "end_ns": sp.end_ns,
             }
             if sp.sim_s is not None:
                 rec["sim_s"] = sp.sim_s
+            if sp.device_ms is not None:
+                rec["device_ms"] = sp.device_ms
             if sp.attrs:
                 rec["attrs"] = dict(sp.attrs)
             out.append(rec)
@@ -263,3 +331,90 @@ class NoopTracer:
 _NOOP_SPAN = Span("noop")
 _NOOP_HANDLE = _NoopHandle()
 NOOP_TRACER = NoopTracer()
+
+
+# --------------------------------------------------------------------------
+# the program recorder: the LM paths' process-wide spans
+# --------------------------------------------------------------------------
+
+PROGRAM_CAPACITY = 100_000
+_MODES = ("profiler", "on")
+_mode = "profiler"
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class _EventPool:
+    """Timing events for device marks, by device index. A span's two
+    events come back once its ``device_ms`` has been read (creating an
+    event costs a driver call)."""
+
+    def __init__(self):
+        self._free: Dict[int, list] = {}
+
+    def take(self, index: int):
+        free = self._free.get(index)
+        return free.pop() if free else torch.cuda.Event(enable_timing=True)
+
+    def give(self, index: int, *events) -> None:
+        self._free.setdefault(index, []).extend(events)
+
+
+_EVENTS = _EventPool()
+
+
+def _mark(index: int):
+    event = _EVENTS.take(index)
+    event.record(torch.cuda.current_stream(index))
+    return event
+
+
+class ProgramRecorder(Tracer):
+    """A :class:`Tracer` that keeps only the newest ``capacity`` root
+    spans (each with its children) and a stack of open spans per thread;
+    a span whose parent was not recorded is a root."""
+
+    def __init__(self, capacity: int = PROGRAM_CAPACITY):
+        self.capacity = capacity
+        super().__init__()
+
+    @property
+    def _stack(self) -> List[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def reset(self) -> None:
+        self.roots: "collections.deque[Span]" = collections.deque(
+            maxlen=self.capacity)
+        self._local = threading.local()
+
+
+PROGRAM = ProgramRecorder()
+"""The spans of the port's LM paths, read after the fact (by the
+benchmark's ``program_span`` readers, or an operator's script)."""
+
+
+def program_tracing(mode: Optional[str] = None) -> str:
+    """Set :data:`PROGRAM`'s mode, ``"profiler"`` or ``"on"`` (None keeps
+    it), and return the mode it had."""
+    global _mode
+    before = _mode
+    if mode is not None:
+        if mode not in _MODES:
+            raise ValueError(f"program tracing mode {mode!r}; one of "
+                             f"{_MODES}")
+        _mode = mode
+    return before
+
+
+def program_span(name: str, mark: Optional[torch.Tensor] = None):
+    """A span of the LM paths in :data:`PROGRAM`, recorded as the mode
+    says; with a tensor as ``mark``, device marks on the current stream
+    of its device where that is a CUDA device. A span not recorded costs
+    the mode check and one call asking torch whether a profiler records,
+    and allocates nothing: its handle is the shared no-op one, whose span
+    takes ``attrs`` writes that nothing reads."""
+    if _mode == "on" or _profiler_enabled():
+        return _SpanHandle(PROGRAM, Span(name), None, mark)
+    return _NOOP_HANDLE
