@@ -3,7 +3,7 @@
 
     python3 chip_kernel_ab.py OTHER [--rounds R]
                               [--attention [--arch NAME ...] | --attention-bwd
-                               | --scan-bwd]
+                               | --scan-bwd | --adamw]
 
 OTHER is another checkout of the repository (for instance the parent
 commit, unpacked with ``git archive`` into a git-ignored directory). The
@@ -52,6 +52,18 @@ each checkout's body for it, held to the plain version in fp32: dr, dk,
 dv within ``chip_smoke.BWD_TOL`` bf16 roundings of their peak, dw and du
 within ``chip_smoke.BWD_TOL_FP32`` of theirs. The entry is named
 ``rwkv6-3b_train``; ``kernel_ms`` splits each turn's call by kernel.
+
+With ``--adamw`` the turns time the train step's optimizer (the clip to a
+global norm of 1.0, AdamW, the apply) as each checkout's
+``make_train_step`` runs it on the card, over h2o-danube-1.8b's 195 leaves
+(1.83 B parameters: bf16 matrices, fp32 norms, gradients of the
+parameters' types, seeded; the clip engaged): the eager ops, or where the
+checkout has ``kernels.adamw`` its fused pass (``Optimizer.fused``: the
+norm, the scale, the update), whose ``kernel_ms`` splits the two kernels. A
+checkout with the fused pass also times its eager path (``eager``), and
+holds the fused pass to it at that size given the same norm (m, v and p
+bit-identical) and the norm to an fp64 one (``norm_rel_err``). The entry is
+named ``h2o-danube-1.8b_optimizer``.
 """
 
 import importlib
@@ -197,6 +209,83 @@ def scan_bwd_turn(src: str) -> dict:
         **cs._kernel_ms(fn), "rel_err_dr_dk_dv_dw_du": errs}}
 
 
+def adamw_turn(src: str) -> dict:
+    """One turn of ``--adamw``, in this process."""
+    sys.path.insert(0, src)
+    sys.path.insert(1, str(HERE))
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.launch.specs import abstract_params, make_optimizer
+    from repro_torch.models import get_arch
+    from repro_torch.optim import optimizers as optim
+    kernels = importlib.import_module("repro_torch.kernels")
+    fused = getattr(kernels, "adamw", None)
+    cfg = get_arch("h2o-danube-1.8b")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = optim.tree_leaves(abstract_params(cfg))
+    params = [(torch.randn(t.shape, generator=gen, device="cuda") * 0.02)
+              .to(t.dtype) for t in shapes]
+    grads = [(torch.randn(t.shape, generator=gen, device="cuda") * 1e-4)
+             .to(t.dtype) for t in shapes]
+    opt = make_optimizer(cfg, total_steps=100)
+    eager_opt = dataclasses.replace(opt, fused=None) \
+        if hasattr(opt, "fused") else opt
+    state = opt.init(params)
+    step = 20
+
+    def eager():      # make_train_step's eager clip, update and apply
+        gs, _ = optim.clip_by_global_norm(list(grads), 1.0)
+        updates, _ = eager_opt.update(gs, state, params, step)
+        with torch.no_grad():
+            for p, u in zip(params, updates):
+                p.copy_((p.float() + u.float()).to(p.dtype))
+
+    def fused_step():
+        norm, update = opt.fused(grads, state, params, step)
+        update(optim.clip_scale(norm(), 1.0))
+
+    timer = cs._Timer()
+    entry = {}
+    if fused is not None:
+        p1, m1, v1 = ([t.clone() for t in ts] for ts in
+                      (params, state["m"], state["v"]))
+        norm_of, update = opt.fused(grads, {"m": m1, "v": v1}, p1, step)
+        norm, again = norm_of(), norm_of()
+        exact = sum(float((g.double() ** 2).sum()) for g in grads) ** 0.5
+        scale = optim.clip_scale(norm, 1.0)
+        update(scale)
+        with torch.no_grad():
+            gs = [(g.float() * scale).to(g.dtype) for g in grads]
+            updates, _ = eager_opt.update(gs, state, params, step)
+            for p, u in zip(params, updates):
+                p.copy_((p.float() + u.float()).to(p.dtype))
+        del gs, updates
+        same = all(torch.equal(a, b) for xs, ys in
+                   ((p1, params), (m1, state["m"]), (v1, state["v"]))
+                   for a, b in zip(xs, ys))
+        del p1, m1, v1
+        torch.cuda.empty_cache()
+        cs.check(same, f"{src}: the fused pass differs from the eager path")
+        cs.check(torch.equal(norm, again), f"{src}: the norm repeats not")
+        entry = {"ms": timer.ms(fused_step, reps=10),
+                 "clean_ms": timer.ms(fused_step, clean=True, reps=10),
+                 "call_ms": timer.ms(fused_step, hold=False, reps=10),
+                 **cs._kernel_ms(fused_step, reps=2),
+                 "bit_identical": same,
+                 "norm_rel_err": abs(float(norm) - exact) / exact}
+    eager_ms = {"ms": timer.ms(eager, reps=10),
+                "call_ms": timer.ms(eager, hold=False, reps=10)}
+    if fused is None:
+        entry = {**eager_ms, "clean_ms": eager_ms["ms"]}
+    else:
+        entry["eager"] = eager_ms
+    entry["params"] = sum(t.numel() for t in params)
+    return {"src": src, "h2o-danube-1.8b_optimizer": entry}
+
+
 def turn(src: str) -> dict:
     """One turn, in this process: the kernels of the checkout at ``src``."""
     sys.path.insert(0, src)
@@ -254,10 +343,13 @@ def main() -> int:
     attention = "--attention" in sys.argv
     attention_bwd = "--attention-bwd" in sys.argv
     scan_bwd = "--scan-bwd" in sys.argv
+    adamw = "--adamw" in sys.argv
     archs = [sys.argv[i + 1] for i, a in enumerate(sys.argv)
              if a == "--arch"] or list(ATTENTION_ARCHS)
     if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
-        if scan_bwd:
+        if adamw:
+            out = adamw_turn(sys.argv[2])
+        elif scan_bwd:
             out = scan_bwd_turn(sys.argv[2])
         elif attention_bwd:
             out = attention_bwd_turn(sys.argv[2])
@@ -277,7 +369,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_ab.py: CUDA is not available", file=sys.stderr)
         return 2
-    if scan_bwd:
+    if adamw:
+        entries, flags = ["h2o-danube-1.8b_optimizer"], ["--adamw"]
+    elif scan_bwd:
         entries, flags = ["rwkv6-3b_train"], ["--scan-bwd"]
     elif attention_bwd:
         sys.path.insert(0, str(HERE))

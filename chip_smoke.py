@@ -1924,15 +1924,20 @@ def _update_check(arch, params, batch, grads, loss):
     one bf16 spacing of the exact sum plus 2**-7 of its update (the
     update's own rounding to bf16 and the gradient's). An update that
     leaves a parameter alone fails wherever the exact update is larger
-    than that limit: their count is printed and must not be 0."""
+    than that limit: their count is printed and must not be 0. On the card
+    the step takes the fused AdamW pass (``kernels.adamw``), two launches:
+    ``adamw_launches``."""
     import torch
+    from repro_torch.kernels import adamw as fused_adamw
     from repro_torch.launch.specs import make_optimizer, make_train_step
     from repro_torch.optim import tree_leaves, tree_map
     start = tree_map(lambda t: t.clone(), params)
     opt = make_optimizer(arch, total_steps=TRAIN_STEPS)
     state = opt.init(start)
+    before = fused_adamw.launches
     new, state, _, metrics = make_train_step(arch, optimizer=opt)(
         start, state, UPDATE_STEP, {k: v.clone() for k, v in batch.items()})
+    launches = fused_adamw.launches - before
     p0, p1 = tree_leaves(params), tree_leaves(new)
     m1, v1, g = tree_leaves(state["m"]), tree_leaves(state["v"]), \
         tree_leaves(grads)
@@ -1967,6 +1972,7 @@ def _update_check(arch, params, batch, grads, loss):
            "moments_rel_l2_max": {"m": worst_m, "v": worst_v},
            "param_err_over_limit_max": worst_p,
            "elements": n, "elements_a_no_op_would_fail": teeth,
+           "adamw_launches": launches,
            "limit": f"m, v: relative L2 <= {MOMENT_REL_L2}; each parameter "
                     f"within one bf16 spacing + 2**-7 x |update| of the "
                     f"fp64 formula"}
@@ -1979,6 +1985,8 @@ def _update_check(arch, params, batch, grads, loss):
           f"update check: AdamW moments off the formula: {out}")
     check(worst_p <= 1.0, f"update check: parameters off the formula: {out}")
     check(teeth > 0, f"update check: no update exceeds its limit: {out}")
+    check(launches == 2, f"update check: the step took {launches} launches "
+                         f"of the fused AdamW pass, not 2: {out}")
     return out
 
 
@@ -1989,7 +1997,8 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
     tokens a step in ``microbatch`` microbatches, ``steps`` steps, launch
     counts from 0 just before and read just after (each step must launch
     the family's forward and backward kernel, ``TRAIN_KERNELS[arch.family]``,
-    once a layer and microbatch). Each step is timed
+    once a layer and microbatch, and the fused AdamW pass twice). Each step
+    is timed
     (host clock to a synchronize) and one traced; the loss must fall as
     ``test_loss_decreases_on_structured_stream`` requires. Then the
     gradient check at the published width cut to 2 layers with batch 1: a
@@ -2097,6 +2106,9 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
     check(by_body[body] == launches[bwd],
           f"train: the backward ran {by_body}, not the {body} body every "
           f"time")
+    check(launches["adamw"] == 2 * steps,
+          f"train: {launches['adamw']} launches of the fused AdamW pass in "
+          f"{steps} steps, not two a step")
     check(min(losses[2:]) < losses[0] - 0.05,
           f"train: the loss did not fall on the structured stream: {losses}")
 

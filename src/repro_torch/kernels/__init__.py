@@ -8,6 +8,10 @@
                     with its backward ``flash_attention_bwd`` for training
   rwkv6_scan      — the RWKV6 WKV recurrence from a given state, with its
                     backward ``rwkv6_scan_bwd`` for training
+  adamw           — the train step's global gradient norm and its clipped
+                    AdamW update and apply over every leaf (no plain
+                    version here: the eager ``optim`` path is the plain
+                    version, and the train step takes it off the card)
 
 The CUDA C++ sources are in ``csrc/``, built with ``nvcc`` for ``sm_90a`` at
 first use (``build.py``) and bound with ``ctypes``. Each kernel has a plain
@@ -15,12 +19,12 @@ torch version in ``ref.py`` that the wrappers take for CPU tensors;
 ``ops.py`` is the dispatch layer.
 """
 
-from . import ops, ref
+from . import adamw, ops, ref
 from .flash_attention import flash_attention, flash_attention_bwd
 from .join_probe import build_direct_table, join_probe
 from .rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 from .segment_reduce import segment_reduce
 
-__all__ = ["ops", "ref", "segment_reduce", "join_probe", "build_direct_table",
-           "flash_attention", "flash_attention_bwd", "rwkv6_scan",
-           "rwkv6_scan_bwd"]
+__all__ = ["adamw", "ops", "ref", "segment_reduce", "join_probe",
+           "build_direct_table", "flash_attention", "flash_attention_bwd",
+           "rwkv6_scan", "rwkv6_scan_bwd"]

@@ -32,7 +32,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 SOURCES = ("join_probe", "segment_reduce", "flash_attention",
-           "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd")
+           "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd", "adamw")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -155,7 +155,8 @@ def aligned16(*tensors) -> bool:
 def stream_counter(device):
     """Two 4-byte words, zeroed once, for the grid-wide tickets and barriers
     of kernels launched on ``device``'s current stream: the first counts
-    ``segment_reduce``'s last-block tickets, the second
+    the last-block tickets of ``segment_reduce`` and of ``adamw``'s norm
+    pass, the second
     ``build_direct_table``'s barrier arrivals in its low half and a
     generation in its high half. Every launch leaves the counts at zero,
     so no call clears them. Launches on one stream run one after another

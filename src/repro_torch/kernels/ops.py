@@ -36,7 +36,7 @@ from torch.distributed.tensor import (DTensor, Partial, Placement,
                                       Replicate, Shard)
 from torch.distributed.tensor.experimental import local_map
 
-from . import ref
+from . import adamw, ref
 from .flash_attention import flash_attention, flash_attention_bwd
 from .join_probe import build_direct_table, join_probe
 from .rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
@@ -46,14 +46,16 @@ __all__ = ["segment_reduce", "equi_probe", "build_direct_table",
            "join_probe", "attention", "rwkv_scan", "launch_counts",
            "reset_launch_counts", "KERNELS", "fit_shards", "shard_start"]
 
-# every kernel wrapper with a launch count, by name
+# every kernel wrapper with a launch count, by name (``adamw`` is the
+# module, whose ``launches`` counts both of its kernels' launches)
 KERNELS = {"join_probe": join_probe,
            "build_direct_table": build_direct_table,
            "segment_reduce": segment_reduce,
            "flash_attention": flash_attention,
            "flash_attention_bwd": flash_attention_bwd,
            "rwkv6_scan": rwkv6_scan,
-           "rwkv6_scan_bwd": rwkv6_scan_bwd}
+           "rwkv6_scan_bwd": rwkv6_scan_bwd,
+           "adamw": adamw}
 
 MAX_DIRECT_KEY_SPACE = 1 << 22
 

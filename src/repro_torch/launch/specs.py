@@ -20,8 +20,17 @@ gradient norm, as plain tensors.
 A train step opens program spans (``obs.trace.program_span``), each with
 device marks: ``train.step`` (attributes ``step``, ``microbatches``)
 around ``train.forward`` and ``train.backward`` (``microbatch``) once a
-microbatch, and ``train.optimizer`` around ``train.clip``,
-``train.update`` and ``train.apply``.
+microbatch, and ``train.optimizer`` (attribute ``fused``) around
+``train.clip``, ``train.update`` and ``train.apply``.
+
+The optimizer's step is fused where the optimizer has a ``fused`` pass
+(AdamW) and the leaves are plain tensors on a CUDA card (not on the CPU,
+not DTensors under a mesh): the global norm in one launch, the clip's
+scale from it on the card, then AdamW and the apply in one launch, under
+``train.clip`` and ``train.update`` (no ``train.apply``). The pass raises
+on a leaf it does not take; it does not fall back. Elsewhere the eager
+clip, ``optimizer.update`` and apply run, which given the same norm leave
+the same bits.
 """
 
 from __future__ import annotations
@@ -40,8 +49,8 @@ from ..models.layers import NULL_POLICY
 from ..models.model import dtensor_region
 from ..obs.trace import program_span
 from ..optim.optimizers import (Optimizer, adafactor, adamw,
-                                clip_by_global_norm, tree_leaves, tree_map,
-                                warmup_cosine)
+                                clip_by_global_norm, clip_scale, tree_leaves,
+                                tree_map, warmup_cosine)
 from .sharding import (MeshPolicy, batch_specs, cache_specs,
                        distribute_tree, param_specs)
 
@@ -200,6 +209,13 @@ def _grads(params, leaves, cfg, batch, policy, microbatch: int = 0):
     return loss.detach(), grads
 
 
+def _on_card(leaf) -> bool:
+    """Whether the step's leaves are plain tensors on a CUDA card, where an
+    optimizer's fused pass runs: not on the CPU, not DTensors under a mesh
+    (ROADMAP A12)."""
+    return not isinstance(leaf, DTensor) and leaf.device.type == "cuda"
+
+
 def make_train_step(cfg: ArchConfig, policy=NULL_POLICY,
                     optimizer: Optional[Optimizer] = None) -> Callable:
     """``train_step(params, opt_state, step, batch) -> (params, opt_state,
@@ -216,6 +232,18 @@ def make_train_step(cfg: ArchConfig, policy=NULL_POLICY,
             sp.attrs["microbatches"] = nmb
             with dtensor_region(isinstance(leaves[0], DTensor)):
                 return _step(params, leaves, opt_state, step, batch)
+
+    def _eager_optimizer(params, leaves, grads, opt_state, step):
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        with program_span("train.clip", leaves[0]):
+            grads, gnorm = clip_by_global_norm(grads, 1.0)
+        with program_span("train.update", leaves[0]):
+            updates, new_opt = optimizer.update(grads, opt_state, params, step)
+        with program_span("train.apply", leaves[0]), torch.no_grad():
+            for p, u in zip(leaves, tree_leaves(updates)):
+                p.copy_((p.float() + u.float()).to(p.dtype))
+        return new_opt, gnorm
 
     def _step(params, leaves, opt_state, step, batch):
         for p in leaves:
@@ -238,17 +266,23 @@ def make_train_step(cfg: ArchConfig, policy=NULL_POLICY,
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        it = iter(grads)
-        grads = tree_map(lambda _: next(it), params)
-        with program_span("train.optimizer", leaves[0]):
-            with program_span("train.clip", leaves[0]):
-                grads, gnorm = clip_by_global_norm(grads, 1.0)
-            with program_span("train.update", leaves[0]):
-                updates, new_opt = optimizer.update(grads, opt_state, params,
-                                                    step)
-            with program_span("train.apply", leaves[0]), torch.no_grad():
-                for p, u in zip(leaves, tree_leaves(updates)):
-                    p.copy_((p.float() + u.float()).to(p.dtype))
+        with program_span("train.optimizer", leaves[0]) as sp:
+            fused = optimizer.fused is not None and _on_card(leaves[0])
+            sp.attrs["fused"] = fused
+            if fused:
+                with program_span("train.clip", leaves[0]):
+                    # autograd may hand back a gradient that is a view
+                    # (no AccumulateGrad makes it contiguous)
+                    norm, update = optimizer.fused(
+                        [g.contiguous() for g in grads], opt_state, params,
+                        step)
+                    gnorm = norm()
+                    scale = clip_scale(gnorm, 1.0)
+                with program_span("train.update", leaves[0]):
+                    new_opt = update(scale)
+            else:
+                new_opt, gnorm = _eager_optimizer(params, leaves, grads,
+                                                  opt_state, step)
         metrics = {"loss": _replicated(loss), "grad_norm": _replicated(gnorm)}
         metrics = {k: v.to_local() if isinstance(v, DTensor) else v
                    for k, v in metrics.items()}

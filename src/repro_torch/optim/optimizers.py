@@ -9,6 +9,8 @@ each leaf's type, as the reference does.
   adamw      — fp32 moments ``{"m", "v"}``; the default below 5e11 params.
                The moments are updated IN PLACE and the same state is
                returned (the reference's trainer donates them to its jit).
+               Its ``fused`` step is the same update and its apply in one
+               pass of ``kernels.adamw`` on the card.
   adafactor  — factored second moment, no momentum: ``{"slots"}``, one
                slot per reference leaf (a stack's leaf is ONE leaf with a
                leading layer axis there, so a stack of (d,) norm weights
@@ -28,21 +30,29 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Optional
 
 import torch
 
 from ..carry import reference_leaves, restack
+from ..kernels import adamw as fused_adamw
 
 __all__ = ["adamw", "adafactor", "warmup_cosine", "clip_by_global_norm",
-           "compress_int8", "decompress_int8", "compressed_accumulate",
-           "Optimizer", "tree_map", "tree_leaves"]
+           "clip_scale", "compress_int8", "decompress_int8",
+           "compressed_accumulate", "Optimizer", "tree_map", "tree_leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
     update: Callable  # (grads, state, params, step) -> (updates, new_state)
+    # (grad leaves, state, params, step) -> (norm, update): the step's pass
+    # on the card (``kernels.adamw`` checks the leaves once and raises on
+    # what it does not take); ``norm()`` the gradients' global norm, a 0-d
+    # fp32 tensor, then ``update(clip scale) -> new_state`` the clipped
+    # update and its apply in place. None where the optimizer has no such
+    # pass
+    fused: Optional[Callable] = None
 
 
 # --------------------------------------------------------------------------
@@ -90,13 +100,19 @@ def warmup_cosine(peak_lr: float, warmup: int, total: int,
     return lr
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that clips gradients of global norm ``norm`` (a 0-d fp32
+    tensor, where it lies) to ``max_norm``: at most 1."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global L2 norm of at most ``max_norm``, the norm
     before clipping as a 0-d fp32 tensor). The leaves are scaled IN PLACE
     (the same tree is returned)."""
     leaves = tree_leaves(grads)
     norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     with torch.no_grad():
         for g in leaves:
             g.copy_((g.float() * scale).to(g.dtype))
@@ -114,11 +130,15 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             p, dtype=torch.float32, memory_format=torch.contiguous_format)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
-    def update(grads, state, params, step):
+    def scalars(step):
+        """(lr, bc1, bc2) at ``step``, each an fp32 value."""
         stepf = torch.as_tensor(step, dtype=torch.float32) + 1.0
-        lr_t = _f32(lr(step))
-        bc1 = _f32(1 - torch.tensor(b1, dtype=torch.float32) ** stepf)
-        bc2 = _f32(1 - torch.tensor(b2, dtype=torch.float32) ** stepf)
+        return (_f32(lr(step)),
+                _f32(1 - torch.tensor(b1, dtype=torch.float32) ** stepf),
+                _f32(1 - torch.tensor(b2, dtype=torch.float32) ** stepf))
+
+    def update(grads, state, params, step):
+        lr_t, bc1, bc2 = scalars(step)
 
         def upd(g, m, v, p):
             # the formula's operations in its order, each temporary
@@ -142,7 +162,21 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             updates = tree_map(upd, grads, state["m"], state["v"], params)
         return updates, state
 
-    return Optimizer(init, update)
+    def fused(grads, state, params, step):
+        lr_t, bc1, bc2 = scalars(step)
+        leaves = fused_adamw.Leaves(grads, tree_leaves(params),
+                                    tree_leaves(state["m"]),
+                                    tree_leaves(state["v"]))
+
+        def update(scale):
+            fused_adamw.adamw_update(
+                leaves, scale, lr=lr_t, b1=b1, b2=b2, eps=eps,
+                weight_decay=weight_decay, bc1=bc1, bc2=bc2)
+            return state
+
+        return (lambda: fused_adamw.global_norm(leaves)), update
+
+    return Optimizer(init, update, fused)
 
 
 # --------------------------------------------------------------------------

@@ -180,7 +180,7 @@ def test_launches_are_counted_on_the_card_only(cuda):
     assert ops.launch_counts() == {"join_probe": 1, "build_direct_table": 1,
                                    "segment_reduce": 1, "flash_attention": 0,
                                    "flash_attention_bwd": 0, "rwkv6_scan": 0,
-                                   "rwkv6_scan_bwd": 0}
+                                   "rwkv6_scan_bwd": 0, "adamw": 0}
 
 
 def _view(a, offset, cuda):

@@ -173,7 +173,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     assert ops.launch_counts() == {"join_probe": 0, "build_direct_table": 0,
                                    "segment_reduce": 0, "flash_attention": 0,
                                    "flash_attention_bwd": 0, "rwkv6_scan": 0,
-                                   "rwkv6_scan_bwd": 0}
+                                   "rwkv6_scan_bwd": 0, "adamw": 0}
 
 
 @pytest.mark.parametrize("call", ["join_probe", "build_direct_table",

@@ -3,8 +3,9 @@
   * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
     any module of the reference package ``repro``;
   * the port mirrors the reference module for module: every port module
-    has a reference module at the same relative path (``carry.py`` and the
-    kernel build module excepted);
+    has a reference module at the same relative path (``carry.py``, the
+    kernel build module and the fused AdamW kernel's wrapper excepted: the
+    reference's optimizer is jnp under XLA, with no kernel to mirror);
   * ``chip_smoke.py`` exits non-zero and prints no result where CUDA is
     unavailable, and when it stands alone outside a checkout;
   * the entry points run on the card unless the caller names the CPU: the
@@ -23,7 +24,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_ONLY = {"carry.py", "kernels/build.py"}
+PORT_ONLY = {"carry.py", "kernels/build.py", "kernels/adamw.py"}
 
 
 def port_sources():

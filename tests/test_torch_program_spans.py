@@ -16,7 +16,8 @@
   * the recorder keeps the newest root spans only.
 
 The one test marked ``cuda`` runs a train step on the card: every phase
-has a positive ``device_ms`` and the phases fit inside the step's.
+has a positive ``device_ms`` and the phases fit inside the step's; the
+optimizer there is the fused pass (``train.clip``, ``train.update``).
 """
 
 import contextlib
@@ -236,15 +237,19 @@ def test_the_recorder_keeps_the_newest_spans(program):
 @pytest.mark.cuda
 def test_train_step_device_marks_on_the_card(program):
     """Every phase of a train step on the card has a positive
-    ``device_ms``, and the phases' sum lies within the step's."""
+    ``device_ms``, and the phases' sum lies within the step's. The
+    optimizer takes the fused pass there: ``train.clip`` and
+    ``train.update``, no ``train.apply``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     _train("on", 2, device="cuda")
     (step,) = program.spans("train.step")
     ms = [(s.name, s.device_ms) for s in program.spans()
           if s.name != "data.wait"]
-    assert len(ms) == 9 and all(v is not None and v > 0 for _, v in ms), ms
+    assert len(ms) == 8 and all(v is not None and v > 0 for _, v in ms), ms
     phases = sum(c.device_ms for c in step.children)
     assert phases <= step.device_ms
     opt = program.spans("train.optimizer")[0]
+    assert opt.attrs == {"fused": True}
+    assert [c.name for c in opt.children] == ["train.clip", "train.update"]
     assert sum(c.device_ms for c in opt.children) <= opt.device_ms
