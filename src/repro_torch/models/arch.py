@@ -65,6 +65,11 @@ class ArchConfig:
     # modality frontend stub: inputs arrive as precomputed embeddings
     frontend: Optional[str] = None  # vision | audio | None
 
+    # MiniCPM's scalings (arXiv:2404.06395); the defaults add no operation
+    scale_emb: Optional[float] = None     # the token embedding's output times it
+    scale_depth: Optional[float] = None   # each residual branch times it / sqrt(n_layers)
+    dim_model_base: Optional[int] = None  # the head's input over d_model / it
+
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     act: str = "silu"

@@ -44,6 +44,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..kernels import ops
+from ..obs.trace import program_span
 from .arch import ArchConfig
 
 Params = Dict[str, Any]
@@ -302,7 +303,13 @@ def attention_mla(params: Params, x: torch.Tensor, cfg: ArchConfig,
     only, and the kernel runs with q·k head dim ``qk_nope + qk_rope`` and v
     head dim ``v_head_dim`` (96 and 64 for minicpm3-4b) at the reference's
     scale 1/sqrt(qk_nope + qk_rope). Types follow jnp's promotion: the
-    latent read from an fp32 cache makes K/V fp32 under bf16 queries."""
+    latent read from an fp32 cache makes K/V fp32 under bf16 queries.
+
+    Two program spans (``obs.trace.program_span``) with device marks, one
+    of each a call, recorded only as the recorder's mode says:
+    ``mla.expand`` from the latent's product with ``wkv_b`` to the
+    assembled K and V (attribute ``slots``, the latent slots it expands,
+    B x (cache_index + T)), and ``mla.attend`` around the attention."""
     B, T, d = x.shape
     H = cfg.n_heads
     nope, rdim, vhd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.vhd
@@ -325,19 +332,22 @@ def attention_mla(params: Params, x: torch.Tensor, cfg: ArchConfig,
         k_rope = cache["rope"][:, :idx + T]
     Tk = kv_lat.shape[1]
 
-    # in the type jnp promotes the pair to (the fp32 latent times bf16
-    # weights is an fp32 product); torch refuses mixed-type products
-    dt = torch.promote_types(kv_lat.dtype, params["wkv_b"].dtype)
-    kv = split_heads(kv_lat.to(dt) @ params["wkv_b"].to(dt),
-                     B, Tk, H, nope + vhd)
-    k_nope, v = kv[..., :nope], kv[..., nope:]
-    k = torch.cat([k_nope, k_rope[:, :, None, :].to(k_nope.dtype)
-                   .expand(B, Tk, H, rdim)], dim=-1)
+    with program_span("mla.expand", kv_lat) as sp:
+        sp.attrs["slots"] = B * Tk
+        # in the type jnp promotes the pair to (the fp32 latent times bf16
+        # weights is an fp32 product); torch refuses mixed-type products
+        dt = torch.promote_types(kv_lat.dtype, params["wkv_b"].dtype)
+        kv = split_heads(kv_lat.to(dt) @ params["wkv_b"].to(dt),
+                         B, Tk, H, nope + vhd)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].to(k_nope.dtype)
+                       .expand(B, Tk, H, rdim)], dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
-    out = ops.attention(qfull.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True, window=cfg.window,
-                        chunk=cfg.chunk_size,
-                        scale=1.0 / math.sqrt(nope + rdim))
+    with program_span("mla.attend", kv_lat):
+        out = ops.attention(qfull.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True,
+                            window=cfg.window, chunk=cfg.chunk_size,
+                            scale=1.0 / math.sqrt(nope + rdim))
     y = out.transpose(1, 2).reshape(B, T, H * vhd) @ params["wo"]
     return pol.cs(y, "act_btd"), cache
 

@@ -21,6 +21,14 @@ updated IN PLACE by :func:`forward` (which returns the same dictionary):
 MoE models keep the gqa (or mla) caches over all ``n_layers``: the leading
 ``n_dense_layers`` then the MoE layers.
 
+MiniCPM's three scalings (``ArchConfig.scale_emb``, ``scale_depth``,
+``dim_model_base``; minicpm3-4b sets them, and the reference package has
+no such fields) apply where the published model applies them: the token
+embedding's output times ``scale_emb``, each attention, MLP or MoE branch
+of a block times ``scale_depth / sqrt(n_layers)`` before it is added to
+the residual, and the final norm's output over ``d_model /
+dim_model_base`` before the head. Their defaults add no operation.
+
 Modality frontends are stubs, as in the reference: a vision model
 (qwen2-vl) takes precomputed patch embeddings (B, T, d_model) as inputs
 in place of tokens, and the encoder of an encoder-decoder model (seamless's
@@ -52,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Any, Dict
 
 import torch
@@ -231,23 +240,31 @@ def _layer_cache(caches, l, names=None):
     return {name: caches[name][l] for name in (names or caches)}
 
 
+def _branch(y, cfg):
+    """A residual branch's output as it is added: MiniCPM scales it by
+    ``scale_depth / sqrt(n_layers)``."""
+    if cfg.scale_depth is None:
+        return y
+    return y * (cfg.scale_depth / math.sqrt(cfg.n_layers))
+
+
 def _attend(bp, h, cfg, positions, cache, idx, pol):
     attn_fn = attention_mla if cfg.attn_kind == "mla" else attention_gqa
     a, _ = attn_fn(bp["attn"], rms_norm(h, bp["ln1"], cfg.norm_eps),
                    cfg, positions, cache, idx, pol)
-    return h + a
+    return h + _branch(a, cfg)
 
 
 def _dense_block(bp, h, cfg, positions, cache, idx, pol):
     h = _attend(bp, h, cfg, positions, cache, idx, pol)
-    return h + mlp(bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps), cfg.act,
-                   pol)
+    return h + _branch(mlp(bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps),
+                           cfg.act, pol), cfg)
 
 
 def _moe_block(bp, h, cfg, positions, cache, idx, pol):
     h = _attend(bp, h, cfg, positions, cache, idx, pol)
     y, aux = moe(bp["moe"], rms_norm(h, bp["ln2"], cfg.norm_eps), cfg, pol)
-    return h + y, aux
+    return h + _branch(y, cfg), aux
 
 
 def _rwkv_layer(bp, h, cfg, state, pol):
@@ -290,6 +307,8 @@ def _forward(params, cfg, inputs, positions, caches, cache_index, pol,
              enc_inputs):
     if inputs.dtype in (torch.int32, torch.int64):
         h = embed(params["embed"], inputs, pol)
+        if cfg.scale_emb is not None:
+            h = h * cfg.scale_emb
     else:
         h = pol.cs(inputs.to(torch.bfloat16), "act_btd")
     idx = int(cache_index) if cache_index is not None else 0
@@ -322,6 +341,8 @@ def _forward(params, cfg, inputs, positions, caches, cache_index, pol,
             h = _remat(pol, _dense_block, bp, h, cfg, positions,
                        _layer_cache(caches, l), idx, pol)
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
+    if cfg.dim_model_base is not None:
+        h = h / (cfg.d_model / cfg.dim_model_base)
     logits = unembed(params["embed"], h, cfg, pol)
     return logits, caches, aux
 

