@@ -2,7 +2,8 @@
 """Time the relational kernels of two checkouts in turns, on one NVIDIA GPU.
 
     python3 chip_kernel_ab.py OTHER [--rounds R]
-                              [--attention [--arch NAME ...] | --attention-bwd
+                              [--attention [--arch NAME ... | --cells]
+                               | --attention-bwd
                                | --scan-bwd | --adamw]
 
 OTHER is another checkout of the repository (for instance the parent
@@ -34,6 +35,19 @@ the cache holds bf16 values), qwen2-vl-72b (64 over 8, hd 128) and
 minicpm3-4b (MLA: 40 heads, q.k hd 96 = 64 + 32 with the rope key shared
 by the heads, v hd 64 a strided slice of the expanded latent, which holds
 fp32 values). Entries are named ``ARCH_prefill`` and ``ARCH_decode``.
+
+With ``--attention --cells`` the turns time ``flash_attention`` at the
+benchmark cells' own calls instead (seeded inputs drawn on the card, the
+serving layouts): ``danube-serve-docqa_prefill`` (16 x 4,001 tokens, H 32
+/ KV 8, hd 80, window 4,096, bf16 q over the fp32 cache holding bf16
+values), ``minicpm3-serve-longdoc_prefill`` (2 x 15,012, H = KV = 40, hd
+96 / hdv 64 over random fp32 K/V, v a strided slice) and
+``danube-train-4x2048_forward`` (4 x 2,048, bf16 q, k, v, the rows'
+log-sum-exps written, as the training forward calls it). Each is held to
+the plain version on its last 64 queries within ``chip_smoke.ATTN_TOL``
+(the whole call's plain scores would not fit the card), the log-sum-exps
+within 1e-4; ``bodies`` gives the counts by body of a checkout that keeps
+them.
 
 With ``--attention-bwd`` the turns time ``flash_attention_bwd`` instead, at
 the shapes of ``chip_smoke.TRAIN_KERNEL_SHAPES``: danube's training call
@@ -141,6 +155,77 @@ def attention_turn(src: str, archs) -> dict:
         out[name] = {"ms": timer.ms(fn), "clean_ms": timer.ms(fn, clean=True),
                      "call_ms": timer.ms(fn, hold=False),
                      **cs._kernel_ms(fn)}
+    return out
+
+
+CELL_CALLS = ("danube-serve-docqa_prefill", "minicpm3-serve-longdoc_prefill",
+              "danube-train-4x2048_forward")
+
+
+def cell_calls(dev):
+    """``{name: (q, k, v, kwargs, with_lse)}`` for the benchmark cells'
+    attention calls, in the layouts their layers pass."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(29)
+
+    def normal(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+    B, T, H, KV = 16, 4001, 32, 8
+    cache = normal(2, B, 4096, KV, 80).bfloat16().float()
+    calls = {"danube-serve-docqa_prefill": (
+        normal(B, T, H, 80).bfloat16().transpose(1, 2),
+        cache[0, :, :T].transpose(1, 2), cache[1, :, :T].transpose(1, 2),
+        {"window": 4096}, False)}
+    B, T, H = 2, 15012, 40
+    kv = normal(B, T, H, 128)
+    k = torch.cat([kv[..., :64], normal(B, T, 1, 32).expand(B, T, H, 32)],
+                  dim=-1).transpose(1, 2)
+    calls["minicpm3-serve-longdoc_prefill"] = (
+        normal(B, T, H, 96).bfloat16().transpose(1, 2), k,
+        kv[..., 64:].transpose(1, 2), {"scale": 96 ** -0.5}, False)
+    B, T, H, KV = 4, 2048, 32, 8
+    calls["danube-train-4x2048_forward"] = tuple(
+        normal(B, T, h, 80).bfloat16().transpose(1, 2)
+        for h in (H, KV, KV)) + ({"window": 4096}, True)
+    return calls
+
+
+def attention_cells_turn(src: str) -> dict:
+    """One turn of ``--attention --cells``, in this process."""
+    sys.path.insert(0, src)
+    sys.path.insert(1, str(HERE))
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops, ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    build.build_all(("flash_attention",))
+    dev = torch.device("cuda")
+    timer = cs._Timer()
+    out = {"src": src}
+    for name, (q, k, v, kw, with_lse) in cell_calls(dev).items():
+        def fn(q=q, k=k, v=v, kw=kw, with_lse=with_lse):
+            if with_lse:
+                return fa._forward(q, k, v, True, kw.get("window"), None,
+                                   q.shape[3] ** -0.5, with_lse=True)
+            return ops.attention(q, k, v, **kw), None
+        before = dict(getattr(fa.flash_attention, "launches_by_body", {}))
+        got, lse = fn()
+        bodies = {b: n - before[b] for b, n in
+                  getattr(fa.flash_attention, "launches_by_body", {}).items()
+                  if n != before[b]}
+        want = ref.flash_attention_ref(q[:, :, -64:], k, v,
+                                       return_lse=with_lse, **kw)
+        if with_lse:
+            want, want_lse = want
+            torch.testing.assert_close(lse[:, :, -64:], want_lse, rtol=1e-5,
+                                       atol=1e-4)
+        err = cs.attention_close(got[:, :, -64:], want, f"{src}: {name}")
+        out[name] = {"ms": timer.ms(lambda: fn(), reps=10),
+                     "clean_ms": timer.ms(lambda: fn(), reps=10, clean=True),
+                     "call_ms": timer.ms(lambda: fn(), hold=False, reps=10),
+                     "tail_max_abs_err": err, "bodies": bodies,
+                     **cs._kernel_ms(lambda: fn(), reps=3)}
+        del got, lse, want
     return out
 
 
@@ -353,6 +438,8 @@ def main() -> int:
             out = scan_bwd_turn(sys.argv[2])
         elif attention_bwd:
             out = attention_bwd_turn(sys.argv[2])
+        elif attention and "--cells" in sys.argv:
+            out = attention_cells_turn(sys.argv[2])
         elif attention:
             out = attention_turn(sys.argv[2], archs)
         else:
@@ -378,6 +465,8 @@ def main() -> int:
         import chip_smoke as cs
         entries = [arch for arch, _, _ in cs.TRAIN_KERNEL_SHAPES]
         flags = ["--attention-bwd"]
+    elif attention and "--cells" in sys.argv:
+        entries, flags = list(CELL_CALLS), ["--attention", "--cells"]
     elif attention:
         entries = [f"{a}_{c}" for a in archs for c in ("prefill", "decode")]
         flags = ["--attention"] + [x for a in archs for x in ("--arch", a)]

@@ -1352,6 +1352,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
     sync()
     wall_s = time.perf_counter() - t0
     launches = ops.launch_counts()
+    by_body = dict(getattr(ops.KERNELS[kernel], "launches_by_body", {}))
     peaks["main"] = torch.cuda.max_memory_allocated() / 1e9
     t = dict(server.timing)   # the witness's serve below times itself too
     check(launches[kernel] == want_launches,
@@ -1504,6 +1505,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
             "card_memory_gb": torch.cuda.get_device_properties(
                 DEVICE).total_memory / 1e9,
             "launches": launches, "want_launches": want_launches,
+            "launches_by_body": by_body,
             "capture_run_tokens_equal": capture_outs == outs,
             "prefill_layer0_max_abs_err": prefill_errs,
             "decode_held_to": decode_held_to,
@@ -2102,6 +2104,7 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
         by_body = bodies()
+        fwd_by_body = dict(getattr(ops.KERNELS[fwd], "launches_by_body", {}))
     finally:
         train_mod.make_train_step = make
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2132,6 +2135,7 @@ def phase_train(arch_name: str, batch: int = TRAIN_BATCH,
             "traced_step": {"index": TRAIN_TRACE_STEP, **traced},
             "peak_memory_gb": peak_gb, "losses": losses,
             "launches": launches, "launches_per_step": per_step,
+            "forward_launches_by_body": fwd_by_body,
             "backward_launches_by_body": by_body}
     check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
     check(per_step[fwd] == per_step[bwd] == arch.n_layers * microbatch,

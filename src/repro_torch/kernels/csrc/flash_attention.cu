@@ -9,8 +9,12 @@
 // masked scores are -1e30 with p = 0, and the output (B,H,Tq,hdv) is
 // acc / max(l, 1e-30), so a row with every key masked gives 0.
 //
-// Two bodies share the grid, the masks and the split-key combine; q's type
-// picks one:
+// Three bodies share the grid, the masks and the split-key combine; the
+// wrapper picks one from what the call shows (flash_attention.fwd_body):
+// flash_fwd_wg for bf16 q with Tq >= 64 at a built (hd, hdv) pair with
+// q's, k's, v's and out's rows 16-byte aligned (the prefill and the
+// training forward), flash_fwd_mma for any other bf16 q (decode, rows off
+// 16 bytes, other head dims), flash_fwd_simt for fp32 q.
 //
 // flash_fwd_mma, for bf16 q over an fp32 or bf16 cache (the serving path).
 // What bounds it: operations. A prefill call (Tq = Tk = 4,500, window
@@ -56,10 +60,35 @@
 //     on the accumulator layout, row max and sum by shuffles in each quad,
 //     exp2 on the SFU. The products with and without the lo tiles are
 //     separate unrolled code, chosen once per tile.
-// On an H100 it runs the danube prefill about 5x faster than the CUDA-core
-// body, still far below the tensor cores' rate (PERF.md): with 8 warps an
-// SM, the latency of the mma, softmax and conversion chain is what is
-// left. wgmma with a producer warp is the next step.
+// Each warp runs the copy wait, conversion, flags, products and softmax of
+// a tile in turn, and only the next tile's copy overlaps them, which keeps
+// it far below the tensor cores' rate (PERF.md): long calls at the built
+// head dims take flash_fwd_wg instead; decode keeps this body (a Tq-1 call
+// is bound by the cache's bytes).
+//
+// flash_fwd_wg, warp-specialised on wgmma (sm_90a), for the long calls:
+// the same split arithmetic (K/V hi and lo wherever lo is nonzero, P hi and
+// lo always, fp32 sums), built for (hd, hdv) = (80, 80) and (96, 64) over
+// an fp32 or a bf16 cache. A block of 384 threads takes the same 128 rows
+// (a GQA group's heads x consecutive positions):
+//   * a producer warpgroup copies each 64-key tile's K and V rows by
+//     cp.async into a ring of three raw slots (two tiles in flight: with
+//     one tile in registers the copies were bound by their latency),
+//     converts each into the bf16 hi (and lo) tiles that wgmma reads,
+//     in the core-matrix layout without swizzle (hdv 64 is not padded),
+//     stores a lo tile only where some lo is nonzero (a flag per tile, by
+//     a barrier reduction over the producer), and hands K and V over by
+//     separate mbarrier rings of two;
+//   * two consumer warpgroups of 64 rows hold q's A fragments in registers
+//     and issue S_n = q K_n^T (K hi, and lo when flagged) with
+//     O += P_{n-1} V_{n-1} (P hi and lo against V hi, P hi against V lo
+//     when flagged) as one wgmma stage, run the online softmax of S_n
+//     (exp2 of one FFMA an element) while the P V products run, then split
+//     P_n into its hi and lo A fragments. Each stage is straight-line code
+//     (the lo products guarded by a predicate, the roles and flags
+//     broadcast from lane 0): ptxas serializes wgmmas that a branch or a
+//     copy splits from their wait. Turns between the two consumers on
+//     named barriers were tried and gave no steady gain (PERF.md).
 //
 // flash_fwd_simt, for fp32 q (the fp32/fp32 pair, which no serving path
 // uses). A two-way bf16 split cannot meet fp32's 2e-5 tolerance, so fp32 q
@@ -71,12 +100,12 @@
 // copies keep a whole tile in flight, beat the CUDA-core body there too on
 // the H100 (PERF.md), so bf16 q takes it at every shape.
 //
-// Both bodies write each row's log-sum-exp of its scaled scores (fp32,
+// Every body writes each row's log-sum-exp of its scaled scores (fp32,
 // (B,H,Tq), natural log; +inf for a row with every key masked) when given
 // a pointer for it: the training forward saves it for the backward kernel
 // (csrc/flash_attention_bwd.cu); serving passes none.
 //
-// Both bodies: few blocks (decode: B x KV) would leave most SMs idle, so
+// Every body: few blocks (decode: B x KV) would leave most SMs idle, so
 // the wrapper splits the key range over a grid dimension; each split
 // writes fp32 partials (acc, m, l) and flash_combine folds them in split
 // order. Strides are arguments: q may be the (B,T,H,hd) projection and k/v
@@ -208,6 +237,21 @@ __device__ __forceinline__ Span span_of(const Args& a, int t0, int t1, int keys)
     sp.tile_hi = min(last + 1, sp.tile_lo + per);
   }
   return sp;
+}
+
+// whether every key of the 64-key tile at kbase exists and passes the
+// masks for every query of the block's span (no mask per element there)
+__device__ __forceinline__ bool tile_whole(const Args& a, const Span& sp, int kbase) {
+  const int klast = kbase + kKeysTc - 1;
+  bool full = klast < a.Tk && kbase >= sp.kmin && klast <= sp.kmax;
+  if (a.causal) full = full && klast <= sp.qlo;
+  if (a.window > 0) full = full && kbase > sp.qhi - a.window;
+  if (a.chunk > 0) {
+    const int c = floor_div(kbase, a.chunk);
+    full = full && floor_div(klast, a.chunk) == c && floor_div(sp.qlo, a.chunk) == c &&
+           floor_div(sp.qhi, a.chunk) == c;
+  }
+  return full;
 }
 
 // fp32 q over an fp32 cache
@@ -716,15 +760,7 @@ flash_fwd_mma(const Args a) {
     }
 
     // scale (log2 units), and mask only a tile that straddles an edge
-    const int klast = kbase + kKeysTc - 1;
-    bool full = klast < a.Tk && kbase >= sp.kmin && klast <= sp.kmax;
-    if (a.causal) full = full && klast <= sp.qlo;
-    if (a.window > 0) full = full && kbase > sp.qhi - a.window;
-    if (a.chunk > 0) {
-      const int c = floor_div(kbase, a.chunk);
-      full = full && floor_div(klast, a.chunk) == c && floor_div(sp.qlo, a.chunk) == c &&
-             floor_div(sp.qhi, a.chunk) == c;
-    }
+    const bool full = tile_whole(a, sp, kbase);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int n = 0; n < KN; ++n) {
@@ -840,6 +876,615 @@ __global__ void flash_combine(const Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the warp-specialised wgmma body (long bf16 calls at the routed head dims)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // a producer warpgroup, two consumer warpgroups
+constexpr int kRaw = 3;          // K/V tiles as copied, in flight (cp.async)
+constexpr int kConv = 2;         // converted K tiles, and V tiles, in the rings
+constexpr int kBarProducer = 1;  // the producer warps' named barrier (0 is __syncthreads)
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// this thread's arrival (release: its shared-memory writes before it are
+// seen by a thread whose wait completes the phase)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of the given parity has completed (a fresh barrier is in
+// phase 0, so a wait for parity 1 passes at once)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// this thread's shared-memory writes made visible to wgmma, which reads
+// through the async proxy
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins registers a wgmma reads or writes in place between its issue and
+// its wait
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(r[n][i])::"memory");
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[n][i])::"memory");
+  }
+}
+
+// A bf16 tile [R][W] (W % 8 == 0) in the core-matrix layout that wgmma
+// reads without swizzle (as csrc/flash_attention_bwd.cu lays its tiles):
+// element (r, c) at ((r / 8) * (W / 8) + c / 8) * 64 + (r % 8) * 8 + c % 8.
+// An operand descriptor: the start address, lbo the bytes between core
+// matrices along the product's depth, sbo along its M or N. Read with its
+// columns as the depth (K-major): lbo 128, sbo W * 16; with its rows as the
+// depth (MN-major): lbo W * 16, sbo 128.
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+#define WG_D(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+
+// d (64 x N fp32, the accumulator layout) = (acc ? d : 0) + a b where on
+// (else d as it was): a the bf16 A fragments in registers (the mma.sync A
+// layout, a warp's 16 rows), b a bf16 tile in shared memory, K-major (TB 0)
+// or MN-major (TB 1). on must be the same in the whole warpgroup; it guards
+// the instruction, so that no branch splits the code between a wgmma and
+// its wait (ptxas serializes the wgmmas of such code)
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                         uint64_t db, int acc, int on);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64, 0>(float (&d)[8][4], const uint32_t (&a)[4],
+                                                uint64_t db, int acc, int on) {
+  asm volatile(
+      "{\n.reg .pred p, g;\nsetp.ne.b32 p, %37, 0;\nsetp.ne.b32 g, %38, 0;\n"
+      "@g wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : WG_D(0), WG_D(1), WG_D(2), WG_D(3), WG_D(4), WG_D(5), WG_D(6), WG_D(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "r"(on));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64, 1>(float (&d)[8][4], const uint32_t (&a)[4],
+                                                uint64_t db, int acc, int on) {
+  asm volatile(
+      "{\n.reg .pred p, g;\nsetp.ne.b32 p, %37, 0;\nsetp.ne.b32 g, %38, 0;\n"
+      "@g wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D(0), WG_D(1), WG_D(2), WG_D(3), WG_D(4), WG_D(5), WG_D(6), WG_D(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "r"(on));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80, 1>(float (&d)[10][4], const uint32_t (&a)[4],
+                                                uint64_t db, int acc, int on) {
+  asm volatile(
+      "{\n.reg .pred p, g;\nsetp.ne.b32 p, %45, 0;\nsetp.ne.b32 g, %46, 0;\n"
+      "@g wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : WG_D(0), WG_D(1), WG_D(2), WG_D(3), WG_D(4), WG_D(5), WG_D(6), WG_D(7),
+        WG_D(8), WG_D(9)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "r"(on));
+}
+
+#undef WG_D
+
+// A producer thread's share of a [64][W] K or V tile: W / 16 units of 8
+// elements of a row (one 16-byte store of bf16), eight neighbouring threads
+// one core matrix; a unit is R 16-byte words as copied (2 of fp32, 1 of
+// bf16). The rows are copied as they are into a raw tile, its rows padded
+// by 16 bytes so that the 8 rows a quarter-warp reads fall in distinct banks.
+template <typename KT, int W>
+struct Units {
+  static constexpr int N = kKeysTc * W / 8 / 128, C8 = W / 8;
+  static constexpr int R = static_cast<int>(sizeof(KT)) / 2;
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(KT));  // elements a 16-byte word
+  static constexpr int RS = W + EPC;                              // raw row stride
+  static constexpr int kRawBytes = static_cast<int>(sizeof(KT)) * kKeysTc * RS;
+  static_assert(kKeysTc * W % (8 * 128) == 0, "units split evenly over 128 threads");
+  uint4 x[N][R];
+  uint32_t lo[N][4];
+
+  __device__ __forceinline__ static int row(int e) { return ((e >> 3) / C8) * 8 + (e & 7); }
+  __device__ __forceinline__ static int at(int e) {  // in the core-matrix layout
+    return (((e >> 3) / C8) * C8 + (e >> 3) % C8) * 64 + (e & 7) * 8;
+  }
+
+  // rows [kbase, kbase + 64) of one (batch, head) slice into a raw tile by
+  // cp.async, 16 bytes a thread, neighbouring threads along a row; zeros
+  // past Tk
+  __device__ __forceinline__ static void copy(KT* raw, const KT* base, long long st, int kbase,
+                                              int Tk, int pt) {
+    constexpr int CK = W / EPC;
+#pragma unroll
+    for (int u = 0; u < kKeysTc * CK / 128; ++u) {
+      const int e = pt + u * 128, j = e / CK, c = e % CK;
+      const int kp = kbase + j;
+      const bool in = kp < Tk;
+      cp_async16(raw + j * RS + c * EPC, base + (in ? kp : 0) * st + c * EPC, in ? 16 : 0);
+    }
+  }
+
+  // this thread's units from a raw tile
+  __device__ __forceinline__ void fetch(const KT* raw, int pt) {
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int e = pt + u * 128;
+      const uint4* src = reinterpret_cast<const uint4*>(raw + row(e) * RS + ((e >> 3) % C8) * 8);
+#pragma unroll
+      for (int r = 0; r < R; ++r) x[u][r] = src[r];
+    }
+  }
+
+  // the bf16 hi tile into shared memory; over fp32 the lo parts (lo =
+  // bf16(x - hi)) kept here. Returns whether any lo is nonzero
+  __device__ __forceinline__ bool store_hi(__nv_bfloat16* hi, int pt) {
+    uint32_t any = 0;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      uint4 h;
+      if constexpr (R == 2) {
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(&x[u][0]);
+        uint32_t* hw = reinterpret_cast<uint32_t*>(&h);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          split2(__uint_as_float(w[2 * j]), __uint_as_float(w[2 * j + 1]), hw[j], lo[u][j]);
+          any |= lo[u][j];
+        }
+      } else {
+        h = x[u][0];
+      }
+      *reinterpret_cast<uint4*>(hi + at(pt + u * 128)) = h;
+    }
+    return any != 0;
+  }
+
+  __device__ __forceinline__ void store_lo(__nv_bfloat16* lo_tile, int pt) const {
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      *reinterpret_cast<uint4*>(lo_tile + at(pt + u * 128)) =
+          make_uint4(lo[u][0], lo[u][1], lo[u][2], lo[u][3]);
+    }
+  }
+};
+
+// The shared memory of a wgmma-body block, in bytes: the converted K tiles
+// (bf16 hi, and lo over an fp32 cache) and V tiles, each a ring of kConv;
+// the K and V rows as copied, a ring of kRaw; a lo flag per K and V slot;
+// the rings' barriers.
+template <typename KT, int HD, int HDV>
+struct WgFwd {
+  static constexpr bool kLo = sizeof(KT) == 4;  // fp32 K/V: a lo tile beside each hi
+  static constexpr int kParts = kLo ? 2 : 1;
+  static constexpr int kKTile = kKeysTc * HD;  // elements of one bf16 K (V) tile
+  static constexpr int kVTile = kKeysTc * HDV;
+  static constexpr int kKSlot = 2 * kParts * kKTile;  // bytes
+  static constexpr int kVSlot = 2 * kParts * kVTile;
+  static constexpr int kRawAt = kConv * (kKSlot + kVSlot);
+  static constexpr int kRawK = Units<KT, HD>::kRawBytes;
+  static constexpr int kRawSlot = kRawK + Units<KT, HDV>::kRawBytes;
+  static constexpr int kFlagAt = kRawAt + kRaw * kRawSlot;  // [K, V][kConv] words
+  static constexpr int kBarAt = kFlagAt + 4 * 2 * kConv;    // kfull, kempty, vfull, vempty
+  static constexpr size_t kBytes = kBarAt + 8 * 4 * kConv;
+  static_assert(HD % 16 == 0 && HDV % 16 == 0 && HDV <= HD, "wgmma depth is 16");
+  static_assert(kKSlot % 128 == 0 && kVSlot % 128 == 0 && kRawK % 16 == 0 &&
+                    kRawSlot % 128 == 0 && kBarAt % 8 == 0,
+                "slots aligned");
+  static_assert(kBytes <= kMaxSmem, "tiles exceed a block's shared memory");
+};
+
+// whether x is set in any of the n threads at named barrier id (a barrier)
+__device__ __forceinline__ bool bar_or(int id, int n, bool x) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.or.pred q, %2, %3, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(x)), "r"(id), "r"(n)
+      : "memory");
+  return r != 0;
+}
+
+// one tile's K or V into ring slot hi (its lo tile after it), once the
+// slot is free: the hi tile, then the lo tile where some lo is nonzero (its
+// flag), made visible to wgmma and handed over by the full barrier
+template <typename KT, int W>
+__device__ __forceinline__ void hand_over(Units<KT, W>& t, __nv_bfloat16* hi, int* flag,
+                                          uint64_t* empty, uint64_t* full, uint32_t parity,
+                                          int pt) {
+  mbar_wait(empty, parity);
+  const bool any = t.store_hi(hi, pt);
+  if constexpr (Units<KT, W>::R == 2) {
+    const bool lo = bar_or(kBarProducer, 128, any);
+    if (lo) t.store_lo(hi + kKeysTc * W, pt);
+    if (pt == 0) *flag = lo;
+  }
+  fence_async_smem();
+  mbar_arrive(full);
+}
+
+// s (a warpgroup's 64 rows x 64 keys) = q k_hi^T (+ q k_lo^T when lo): q
+// the A fragments, K [64][HD] K-major
+template <int HD, bool LO>
+__device__ __forceinline__ void wg_scores(float (&s)[kKeysTc / 8][4], const uint32_t (&qf)[HD / 16][4],
+                                          const __nv_bfloat16* kh, const __nv_bfloat16* kl,
+                                          int lo) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    wgmma_rs<64, 0>(s, qf[kk], wg_desc(kh + kk * 128, 128, HD * 16), kk > 0, 1);
+  }
+  if constexpr (LO) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_rs<64, 0>(s, qf[kk], wg_desc(kl + kk * 128, 128, HD * 16), 1, lo);
+    }
+  }
+}
+
+// o += p_hi v_hi + p_lo v_hi (+ p_hi v_lo when lo): V [64][HDV] MN-major
+template <int HDV, bool LO>
+__device__ __forceinline__ void wg_values(float (&o)[HDV / 8][4], const uint32_t (&ph)[4][4],
+                                          const uint32_t (&pl)[4][4], const __nv_bfloat16* vh,
+                                          const __nv_bfloat16* vl, int lo) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs<HDV, 1>(o, ph[kk], wg_desc(vh + kk * 16 * HDV, HDV * 16, 128), 1, 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs<HDV, 1>(o, pl[kk], wg_desc(vh + kk * 16 * HDV, HDV * 16, 128), 1, 1);
+  }
+  if constexpr (LO) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<HDV, 1>(o, ph[kk], wg_desc(vl + kk * 16 * HDV, HDV * 16, 128), 1, lo);
+    }
+  }
+}
+
+// a slot's lo flag, broadcast from lane 0 so that the compiler sees it
+// uniform
+__device__ __forceinline__ bool lo_flag(const int* f) {
+  return __shfl_sync(0xffffffffu, *f, 0) != 0;
+}
+
+// Warpgroup 0 is the producer: it copies each 64-key tile's K and V rows
+// by cp.async into a ring of kRaw raw slots (tiles n + 1 and n + 2 in
+// flight while tile n is converted), converts each tile into the bf16 hi
+// (and lo) tiles of the K and V rings, flags a tile whose lo is nonzero
+// anywhere (storing the lo tile only then), and hands each over by an
+// mbarrier. Warpgroups 1 and 2 are the consumers, 64 rows each (the
+// block's rows as the mma body maps them), q's A fragments in registers.
+// For tile n a consumer issues S_n = q K_n^T and then O += P_{n-1} V_{n-1},
+// releases K_n once S_n is in, runs the online softmax of S_n while
+// P_{n-1} V_{n-1} is in flight, then releases V_{n-1}, rescales O and
+// splits P_n into its hi and lo A fragments.
+template <typename KT, int HD, int HDV>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wg(const Args a) {
+  using L = WgFwd<KT, HD, HDV>;
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  auto k_hi = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem_wg + s * L::kKSlot);
+  };
+  auto v_hi = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem_wg + kConv * L::kKSlot + s * L::kVSlot);
+  };
+  int* kflag = reinterpret_cast<int*>(smem_wg + L::kFlagAt);  // [kConv]
+  int* vflag = kflag + kConv;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_wg + L::kBarAt);
+  uint64_t* kfull = bars;
+  uint64_t* kempty = bars + kConv;
+  uint64_t* vfull = bars + 2 * kConv;
+  uint64_t* vempty = bars + 3 * kConv;
+
+  // the warp's roles broadcast from lane 0, so that the compiler sees them
+  // uniform across the warp: a wgmma on a path it cannot prove uniform is
+  // serialized
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, (tid >> 5) & 3, 0);
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  int y = blockIdx.y;
+  const int hg = y % a.n_hgroups;
+  y /= a.n_hgroups;
+  const int kvh = y % a.KV;
+  const int b = y / a.KV;
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * a.bt;  // the longest causal walks first
+  const int t1 = min(t0 + a.bt, a.Tq);
+  const Span sp = span_of(a, t0, t1, kKeysTc);
+  const int n = sp.tile_hi - sp.tile_lo;
+
+  if (tid == 0) {
+    for (int s = 0; s < kConv; ++s) {
+      mbar_init(kfull + s, 128);
+      mbar_init(vfull + s, 128);
+      mbar_init(kempty + s, 256);
+      mbar_init(vempty + s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: tiles n + 1 and n + 2 in flight (cp.async) while tile n
+    // is converted and handed over
+    const KT* kb0 = static_cast<const KT*>(a.k) + b * a.sk[0] + kvh * a.sk[1];
+    const KT* vb0 = static_cast<const KT*>(a.v) + b * a.sv[0] + kvh * a.sv[1];
+    auto raw = [&](int i) {
+      return reinterpret_cast<KT*>(smem_wg + L::kRawAt + (i % kRaw) * L::kRawSlot);
+    };
+    auto copy = [&](int i) {  // tile tile_lo + i into raw slot i % kRaw
+      const int kbase = (sp.tile_lo + i) * kKeysTc;
+      Units<KT, HD>::copy(raw(i), kb0, a.sk[2], kbase, a.Tk, tid);
+      Units<KT, HDV>::copy(raw(i) + L::kRawK / sizeof(KT), vb0, a.sv[2], kbase, a.Tk, tid);
+    };
+#pragma unroll
+    for (int r = 0; r < kRaw - 1; ++r) {
+      if (r < n) copy(r);
+      cp_async_commit();
+    }
+    Units<KT, HD> kt;
+    Units<KT, HDV> vt;
+    for (int i = 0; i < n; ++i) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kRaw - 2) : "memory");
+      bar_sync(kBarProducer, 128);  // tile i in from every thread; tile i - 1 fetched
+      if (i + kRaw - 1 < n) copy(i + kRaw - 1);
+      cp_async_commit();
+      const int s = i % kConv;
+      const uint32_t free_parity = ((i / kConv) & 1) ^ 1;
+      kt.fetch(raw(i), tid);
+      hand_over(kt, k_hi(s), kflag + s, kempty + s, kfull + s, free_parity, tid);
+      vt.fetch(raw(i) + L::kRawK / sizeof(KT), tid);
+      hand_over(vt, v_hi(s), vflag + s, vempty + s, vfull + s, free_parity, tid);
+    }
+    return;
+  }
+
+  // a consumer: warpgroup cw's 64 rows, this lane's two of its warp's 16
+  const int cw = wg - 1, g = lane >> 2, tig = lane & 3;
+  const int q_off = a.Tk - a.Tq;
+  const Row r0 = row_of(a, cw * 64 + warp * 16 + g, kvh, hg, t0);
+  const Row r1 = row_of(a, cw * 64 + warp * 16 + g + 8, kvh, hg, t0);
+  const int qp0 = q_off + r0.t, qp1 = q_off + r1.t;
+  uint32_t qf[HD / 16][4];  // bf16 as given: exact; 0 on rows past the tile
+  {
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const Row& r = (i & 1) ? r1 : r0;
+        const int d = kk * 16 + (i >> 1) * 8 + tig * 2;
+        qf[kk][i] = r.valid ? *reinterpret_cast<const uint32_t*>(
+                                  q + b * a.sq[0] + r.head * a.sq[1] + r.t * a.sq[2] + d)
+                            : 0u;
+      }
+    }
+  }
+  const float sl2 = a.scale * kLog2e;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8 (log2 units)
+  float l0 = 0.f, l1 = 0.f;              // this lane's part of the row sums
+  float o[HDV / 8][4], s[kKeysTc / 8][4];
+  uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+  for (int j = 0; j < HDV / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kKeysTc / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ph[j][0] = ph[j][1] = ph[j][2] = ph[j][3] = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) pl[j][0] = pl[j][1] = pl[j][2] = pl[j][3] = 0u;
+
+  // softmax of tile i's scores in s (log2 units): mask a tile that
+  // straddles an edge (-inf: p = 0); the row max of the raw scores, then
+  // p = 2^(s * scale * log2 e - max) in one FFMA; rescale O's factors
+  auto softmax = [&](int i, float& alpha0, float& alpha1) {
+    const int kbase = (sp.tile_lo + i) * kKeysTc;
+    if (!tile_whole(a, sp, kbase)) {
+#pragma unroll
+      for (int j = 0; j < kKeysTc / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kbase + j * 8 + tig * 2 + (e & 1);
+          if (kp >= a.Tk || !allowed(a, e < 2 ? qp0 : qp1, kp)) s[j][e] = -INFINITY;
+        }
+      }
+    }
+    float mx0 = s[0][0], mx1 = s[0][2];
+#pragma unroll
+    for (int j = 0; j < kKeysTc / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(m0, quad_max(mx0) * sl2);
+    mx1 = fmaxf(m1, quad_max(mx1) * sl2);
+    // a row with every key masked so far keeps max -inf; its offset 0
+    // gives p = 0 and alpha = 0 (o and l are 0 there)
+    const float off0 = mx0 == -INFINITY ? 0.f : mx0, off1 = mx1 == -INFINITY ? 0.f : mx1;
+    alpha0 = fast_exp2(m0 - off0);
+    alpha1 = fast_exp2(m1 - off1);
+    m0 = mx0;
+    m1 = mx1;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeysTc / 8; ++j) {
+      s[j][0] = fast_exp2(fmaf(s[j][0], sl2, -off0));
+      s[j][1] = fast_exp2(fmaf(s[j][1], sl2, -off0));
+      s[j][2] = fast_exp2(fmaf(s[j][2], sl2, -off1));
+      s[j][3] = fast_exp2(fmaf(s[j][3], sl2, -off1));
+      ls0 += s[j][0] + s[j][1];
+      ls1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * alpha0 + ls0;
+    l1 = l1 * alpha1 + ls1;
+  };
+  // P as the A fragments of the next product, split p = p_hi + p_lo
+  auto split_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      split2(s[2 * kk][0], s[2 * kk][1], ph[kk][0], pl[kk][0]);
+      split2(s[2 * kk][2], s[2 * kk][3], ph[kk][1], pl[kk][1]);
+      split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[kk][2], pl[kk][2]);
+      split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[kk][3], pl[kk][3]);
+    }
+  };
+  auto k_ready = [&](int i) {  // K_i landed; its lo flag
+    const int sl = i % kConv;
+    mbar_wait(kfull + sl, (i / kConv) & 1);
+    return L::kLo ? static_cast<int>(lo_flag(kflag + sl)) : 0;
+  };
+  auto v_ready = [&](int i) {
+    const int sl = i % kConv;
+    mbar_wait(vfull + sl, (i / kConv) & 1);
+    return L::kLo ? static_cast<int>(lo_flag(vflag + sl)) : 0;
+  };
+
+  // Each pipeline stage below, from its fence to its last wait, is
+  // straight-line code (the lo products are guarded, not branched around):
+  // the first tile's S, then each later tile's S with the last P V, then
+  // the last tile's P V.
+  if (n > 0) {
+    const int k_lo = k_ready(0);
+    wgmma_fence();
+    wg_scores<HD, L::kLo>(s, qf, k_hi(0), k_hi(0) + L::kKTile, k_lo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(s);
+    mbar_arrive(kempty);
+    float alpha0, alpha1;
+    softmax(0, alpha0, alpha1);
+    split_p();
+  }
+  for (int i = 1; i < n; ++i) {  // S_i, and P_{i-1} V_{i-1}
+    const int s_k = i % kConv, s_v = (i - 1) % kConv;
+    const int k_lo = k_ready(i), v_lo = v_ready(i - 1);
+    wgmma_fence();
+    wg_scores<HD, L::kLo>(s, qf, k_hi(s_k), k_hi(s_k) + L::kKTile, k_lo);
+    wgmma_commit();
+    wg_values<HDV, L::kLo>(o, ph, pl, v_hi(s_v), v_hi(s_v) + L::kVTile, v_lo);
+    wgmma_commit();
+    wgmma_wait<1>();  // S_i in; P_{i-1} V_{i-1} may run under the softmax
+    hold(s);
+    mbar_arrive(kempty + s_k);
+    float alpha0, alpha1;
+    softmax(i, alpha0, alpha1);
+    wgmma_wait<0>();
+    hold(o);
+    hold(ph);
+    hold(pl);
+    mbar_arrive(vempty + s_v);
+#pragma unroll
+    for (int j = 0; j < HDV / 8; ++j) {
+      o[j][0] *= alpha0;
+      o[j][1] *= alpha0;
+      o[j][2] *= alpha1;
+      o[j][3] *= alpha1;
+    }
+    split_p();
+  }
+  if (n > 0) {  // the last tile's P V
+    const int s_v = (n - 1) % kConv;
+    const int v_lo = v_ready(n - 1);
+    wgmma_fence();
+    wg_values<HDV, L::kLo>(o, ph, pl, v_hi(s_v), v_hi(s_v) + L::kVTile, v_lo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(o);
+    mbar_arrive(vempty + s_v);
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const long long n_rows = static_cast<long long>(a.B) * a.H * a.Tq;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const Row& r = half ? r1 : r0;
+    if (!r.valid) continue;
+    const float l = half ? l1 : l0;
+    const float m = half ? m1 : m0;
+    if (a.splits == 1) {
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + b * a.so[0] +
+                           r.head * a.so[1] + r.t * a.so[2];
+      const float denom = fmaxf(l, 1e-30f);
+      if (a.lse != nullptr && tig == 0) {  // m in log2 units
+        a.lse[(static_cast<long long>(b) * a.H + r.head) * a.Tq + r.t] =
+            l > 0.f ? (m + log2f(l)) * kLn2 : INFINITY;
+      }
+#pragma unroll
+      for (int j = 0; j < HDV / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + tig * 2) =
+            __floats2bfloat162_rn(o[j][2 * half] / denom, o[j][2 * half + 1] / denom);
+      }
+    } else {
+      const long long row = (static_cast<long long>(b) * a.H + r.head) * a.Tq + r.t;
+      const long long at = static_cast<long long>(blockIdx.z) * n_rows + row;
+#pragma unroll
+      for (int j = 0; j < HDV / 8; ++j) {
+        *reinterpret_cast<float2*>(a.part_acc + at * HDV + j * 8 + tig * 2) =
+            make_float2(o[j][2 * half], o[j][2 * half + 1]);
+      }
+      if (tig == 0) {  // flash_combine weighs the splits by exp(m) in natural units
+        a.part_ml[at * 2] = m == -INFINITY ? kNegInf : m * kLn2;
+        a.part_ml[at * 2 + 1] = l;
+      }
+    }
+  }
+}
+
 size_t smem_bytes(int hd, int hc) {
   const int hdp = (hd + 3) & ~3;
   return sizeof(float) * (static_cast<size_t>(kRows) * hdp +
@@ -928,25 +1573,48 @@ cudaError_t launch_mma_hd(const Args& a, cudaStream_t s) {
   }
 }
 
+template <typename KT, int HD, int HDV>
+cudaError_t launch_wg(const Args& a, cudaStream_t s) {
+  constexpr size_t smem = WgFwd<KT, HD, HDV>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wg<KT, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_fwd_wg<KT, HD, HDV><<<grid_of(a), kWgThreads, smem, s>>>(a);
+  launch_combine<__nv_bfloat16>(a, s);
+  return cudaGetLastError();
+}
+
+// the wgmma body, built for the routed (hd, hdv) pairs only, 128-row blocks
+// with q's, k's, v's and out's rows 16-byte aligned
+template <typename KT>
+cudaError_t launch_wg_hd(const Args& a, cudaStream_t s) {
+  if (!a.vec || a.group * a.bt > 128) return cudaErrorInvalidValue;
+  if (a.hd == 80 && a.hdv == 80) return launch_wg<KT, 80, 80>(a, s);
+  if (a.hd == 96 && a.hdv == 64) return launch_wg<KT, 96, 64>(a, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. lse: null, or (B,H,Tq) fp32 for
 // each row's log-sum-exp. q and out share q_dtype; k and v
 // share kv_dtype. The (q, k/v) pairs built are fp32/fp32, bf16/fp32 (the
-// serving path: bf16 activations over the fp32 cache) and bf16/bf16; bf16
-// q takes the mma body, fp32 q the simt body. hd is q's and k's head dim,
-// hdv (<= hd) v's and the output's; with bf16 q, hdv < hd only for hd
-// 81..96. Strides are in elements, ordered
-// (batch, head, t, dim). vec: K's and V's rows may both be copied 16 bytes
-// at a time (each with unit stride along its head dim, its other strides,
-// its width and its base 16-byte aligned).
+// serving path: bf16 activations over the fp32 cache) and bf16/bf16. body
+// (flash_attention.fwd_body picks it): 0 = simt (fp32 q), 1 = mma (bf16
+// q), 2 = wgmma (bf16 q, (hd, hdv) = (80, 80) or (96, 64), vec covering
+// q's and out's rows too). hd is q's and k's head dim, hdv (<= hd) v's and
+// the output's; with bf16 q, hdv < hd only for hd 81..96. Strides are in
+// elements, ordered (batch, head, t, dim). vec: K's and V's rows may both
+// be copied 16 bytes at a time (each with unit stride along its head dim,
+// its other strides, its width and its base 16-byte aligned).
 extern "C" int cobra_flash_attention(
     const void* q, const void* k, const void* v, void* out, void* part_acc,
     void* part_ml, void* lse, int B, int H, int KV, int Tq, int Tk, int hd, int hdv,
     const long long* sq, const long long* sk, const long long* sv,
     const long long* so, int causal, int window, int chunk, float scale,
     int group, int n_hgroups, int bt, int splits, int q_dtype, int kv_dtype,
-    int vec, void* stream) {
+    int body, int vec, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -979,15 +1647,17 @@ extern "C" int cobra_flash_attention(
   a.vec = vec;
   if (B == 0 || H == 0 || Tq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (q_dtype == 1 && kv_dtype == 0) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (body == 2 && q_dtype == 1 && kv_dtype == 0) {
+    err = launch_wg_hd<float>(a, s);
+  } else if (body == 2 && q_dtype == 1 && kv_dtype == 1) {
+    err = launch_wg_hd<__nv_bfloat16>(a, s);
+  } else if (body == 1 && q_dtype == 1 && kv_dtype == 0) {
     err = launch_mma_hd<float>(a, s);
-  } else if (q_dtype == 1 && kv_dtype == 1) {
+  } else if (body == 1 && q_dtype == 1 && kv_dtype == 1) {
     err = launch_mma_hd<__nv_bfloat16>(a, s);
-  } else if (q_dtype == 0 && kv_dtype == 0) {
+  } else if (body == 0 && q_dtype == 0 && kv_dtype == 0) {
     err = launch_simt_hd(a, s);
-  } else {
-    err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -10,13 +10,19 @@ tail of the keys. Head dims 1..160: the kernel is instantiated for every
 a head dim between takes the next one up. On the tensor cores a v narrower
 than q.k is a variant of its own, built for hd 81..96 only (MLA's 96/64);
 every other depth there takes ``hdv == hd``. The kernel is in
-``csrc/flash_attention.cu`` (its header says what bounds it and how). q's
-type picks its body: bf16 q takes the tensor cores, fp32 q the CUDA cores
-(a two-way bf16 split cannot meet fp32's tolerance); the block size
-follows the shape (8 warps for a long bf16 call, 4 for decode).
+``csrc/flash_attention.cu`` (its header says what bounds it and how).
+:func:`fwd_body` picks its body from what the call shows: a long bf16
+call (Tq >= 64: the prefill, the training forward) at a head-dim pair the
+warp-specialised wgmma body is built for ((80, 80) and (96, 64)) with q's,
+k's, v's and the output's rows 16-byte aligned takes that body; any other
+bf16 call (decode, rows off 16 bytes, other head dims) the ``mma.sync``
+body, in 8-warp blocks for a long call and 4-warp ones for decode; fp32 q
+the CUDA cores (a two-way bf16 split cannot meet fp32's tolerance). Each
+launch counts in ``flash_attention.launches`` and under its body in
+``flash_attention.launches_by_body``.
 
 The wrapper dispatches on the tensor's device: a CUDA tensor launches the
-kernel (and bumps ``flash_attention.launches``), a CPU tensor takes the
+kernel (and bumps its counts), a CPU tensor takes the
 plain version :func:`.ref.flash_attention_ref`, which autograd
 differentiates. There is no fallback from one to the other. On the card,
 with grad enabled and an input that requires it (training), the call goes
@@ -48,7 +54,7 @@ import torch
 
 from . import build, ref
 
-__all__ = ["flash_attention", "flash_attention_bwd", "bwd_body"]
+__all__ = ["flash_attention", "flash_attention_bwd", "fwd_body", "bwd_body"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,7 +66,7 @@ _SIGNATURES = {
         _STRIDES, _STRIDES, _STRIDES, _STRIDES,  # q, k, v, out strides
         _I, _I, _I, ctypes.c_float,              # causal, window, chunk, scale
         _I, _I, _I, _I,                          # group, n_hgroups, bt, splits
-        _I, _I, _I, _P),                         # dtypes, vec, stream
+        _I, _I, _I, _I, _P),                     # dtypes, body, vec, stream
 }
 _BWD_SIGNATURES = {
     "cobra_flash_attention_bwd": (
@@ -80,6 +86,12 @@ _KEYS = {torch.float32: 32, torch.bfloat16: 64}
 _MAX_HD = 160        # mma depth KS <= 10 slices of 16; simt HC <= 5 of 32
 _NARROW_V_HD = (81, 96)   # the mma depth (KS 6) built for hdv < hd
 _MIN_TILES_PER_SPLIT = 4
+# the forward's bodies (their codes in csrc/flash_attention.cu), and the
+# (hd, hdv) pairs its wgmma body is built for, over an fp32 or a bf16 cache
+# (danube's 80; MLA's 96 with v 64), from calls of this many queries on
+FWD_BODIES = {"simt": 0, "mma": 1, "wgmma": 2}
+_WG_FWD_HEAD_DIMS = ((80, 80), (96, 64))
+_WG_FWD_MIN_TQ = 64
 # the backward's bodies (their codes in csrc/flash_attention_bwd.cu), the
 # (hd, hdv) pairs its wgmma body is built for (the training head dims of
 # the registered architectures), and the widths the CUDA-core body pads to
@@ -100,9 +112,33 @@ def _strides(t: torch.Tensor):
     return (ctypes.c_longlong * 4)(*t.stride())
 
 
+def fwd_body(q_dtype: torch.dtype, kv_dtype: torch.dtype, Tq: int, hd: int,
+             hdv: int, aligned: bool) -> str:
+    """The forward kernel's body for q of type ``q_dtype`` and ``Tq``
+    queries over k/v of type ``kv_dtype``, q.k head dim ``hd``, v head dim
+    ``hdv``, and whether q's, k's, v's and the output's rows are 16-byte
+    aligned (``build.rows16``): "wgmma" for bf16 q with ``Tq >= 64`` at a
+    pair of ``_WG_FWD_HEAD_DIMS`` with aligned rows (the prefill and the
+    training forward); "mma" for any other bf16 q (decode, rows off 16
+    bytes, other head dims); "simt" for fp32 q."""
+    if (q_dtype, kv_dtype) not in _TYPE_PAIRS:
+        raise ValueError(f"flash_attention: unsupported types q {q_dtype}, "
+                         f"k/v {kv_dtype}")
+    if not 0 < hdv <= hd <= _MAX_HD:
+        raise ValueError(f"flash_attention: head dims ({hd}, {hdv}) outside "
+                         f"0 < hdv <= hd <= {_MAX_HD}")
+    if q_dtype == torch.float32:
+        return "simt"
+    if Tq >= _WG_FWD_MIN_TQ and aligned and (hd, hdv) in _WG_FWD_HEAD_DIMS:
+        return "wgmma"
+    return "mma"
+
+
 def _rows(q_dtype: torch.dtype, Tq: int) -> int:
-    """Query rows per block, 16 per warp: 8 warps for a long call on the
-    tensor cores (each K/V tile's staging serves twice the rows), else 4."""
+    """Query rows per block: 128 for a long call on the tensor cores (the
+    ``mma`` body's 8 warps of 16, or the ``wgmma`` body's two consumer
+    warpgroups of 64; each K/V tile's staging serves twice the rows), else
+    64 (4 warps)."""
     return 128 if q_dtype == torch.bfloat16 and Tq >= 64 else 64
 
 
@@ -218,6 +254,8 @@ def _forward(q, k, v, causal, window, chunk, scale, with_lse: bool):
                                device=q.device)
         part_ml = torch.empty((splits, rows, 2), dtype=torch.float32,
                               device=q.device)
+    body = fwd_body(q.dtype, k.dtype, Tq, hd, hdv,
+                    all(build.rows16(t) for t in (q, k, v, out)))
     with torch.cuda.device(q.device):
         err = _lib().cobra_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -228,15 +266,17 @@ def _forward(q, k, v, causal, window, chunk, scale, with_lse: bool):
             _strides(q), _strides(k), _strides(v), _strides(out),
             int(causal), window or 0, chunk or 0, float(scale),
             group, n_hgroups, bt, splits,
-            _DTYPES[q.dtype], _DTYPES[k.dtype],
+            _DTYPES[q.dtype], _DTYPES[k.dtype], FWD_BODIES[body],
             int(build.rows16(k) and build.rows16(v)),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_by_body[body] += 1
     return out, lse
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_body = dict.fromkeys(FWD_BODIES, 0)
 
 
 def bwd_body(hd: int, hdv: int, dtype: torch.dtype,

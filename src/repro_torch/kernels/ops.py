@@ -158,9 +158,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's count (and the backward kernels' counts by
-    body)."""
+    """Zero every wrapper's count (and the attention kernels' and the
+    scan's backward's counts by body)."""
     for fn in KERNELS.values():
         fn.launches = 0
-    for fn in (flash_attention_bwd, rwkv6_scan_bwd):
+    for fn in (flash_attention, flash_attention_bwd, rwkv6_scan_bwd):
         fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)

@@ -37,6 +37,13 @@ runs where only torch is installed::
     narrower v widths (hd 88 and 96 on the tensor cores, 128 and 160 on
     the CUDA cores), and the refusal of a narrower v at another
     tensor-core depth;
+  * the warp-specialised wgmma body of the long bf16 calls, at the
+    present tolerances: hd 80 with GQA 4:1 over a bf16-exact fp32 cache
+    with the 4,096 window (lo skipped) and over a random one, hd 96 / hdv
+    64 with H = KV over random fp32 (every lo product taken) and v a
+    strided slice, bf16 k/v with the rows' log-sum-exps, Tq off 64 and 128,
+    Tq < Tk, the chunk mask and split keys; and each call counted under
+    the body that ran (prefill ``wgmma``, decode ``mma``);
   * ``rwkv6_scan``: the reference's scan sweep, from zero and from a given
     state, ragged T, one-token decode, extreme decay, within 1e-3 fp32 and
     3e-2 bf16; and the chunk-parallel scan over several chunks with a
@@ -533,6 +540,98 @@ def test_flash_attention_narrow_v_widths(cuda, hd, hdv, q_dt):
     assert got.shape == (B, H, Tq, hdv)
     torch.testing.assert_close(got.float(), want.float(),
                                **ATTN_KERNEL_TOL[q_dt])
+
+
+def _body_launched(before):
+    """The bodies whose launch counts moved since ``before``, with the
+    moves."""
+    return {b: n - before[b] for b, n in
+            fa.flash_attention.launches_by_body.items() if n != before[b]}
+
+
+# (B, H, KV, Tq, Tk, hd, kv dtype, bf16-exact cache, window, chunk): bf16 q
+# on the wgmma body, GQA at danube's hd 80. The serving prefill over a
+# bf16-exact fp32 cache with the 4,096 window engaged (lo skipped) and over
+# a random one (lo taken), bf16 k/v, Tq off 64 and 128, queries at the tail
+# of the keys (Tq < Tk), the chunk mask, and split keys (few blocks)
+ATTN_WGMMA = [
+    (1, 8, 2, 4500, 4500, 80, "float32", True, 4096, None),
+    (1, 8, 2, 1100, 1100, 80, "float32", False, 1024, None),
+    (2, 8, 2, 77, 77, 80, "bfloat16", False, None, None),
+    (1, 8, 2, 200, 333, 80, "float32", False, None, None),
+    (2, 8, 2, 130, 1000, 80, "float32", True, 256, None),
+    (1, 4, 1, 250, 250, 80, "float32", False, None, 64),
+    (1, 8, 2, 64, 4000, 80, "float32", True, 4096, None),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Tq,Tk,hd,kv_dt,exact,window,chunk",
+                         ATTN_WGMMA)
+def test_flash_attention_wgmma_body(cuda, B, H, KV, Tq, Tk, hd, kv_dt, exact,
+                                    window, chunk):
+    before = dict(fa.flash_attention.launches_by_body)
+    _attention_case(cuda, B, H, KV, Tq, Tk, hd, "bfloat16", kv_dt, True,
+                    window, chunk, seed=Tq + Tk, bf16_cache=exact)
+    assert _body_launched(before) == {"wgmma": 1}
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,kv_dt", [
+    (1, 8, 700, 700, "float32"),    # every lo product taken
+    (2, 8, 77, 333, "float32"),     # Tq off 64, queries at the tail
+    (1, 40, 300, 300, "bfloat16"),
+])
+def test_flash_attention_wgmma_body_mla(cuda, B, H, Tq, Tk, kv_dt):
+    # MLA's hd 96 / hdv 64 with H = KV, v a strided slice of the expanded
+    # latent as attention_mla passes it
+    q, k, v = _mla_inputs(cuda, B, H, Tq, Tk, "bfloat16", kv_dt, seed=Tq)
+    assert not v.is_contiguous()
+    scale = 1.0 / np.sqrt(96)
+    before = dict(fa.flash_attention.launches_by_body)
+    got = ops.attention(q, k, v, causal=True, scale=scale)
+    want = ref.flash_attention_ref(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert _body_launched(before) == {"wgmma": 1}
+    assert got.shape == (B, H, Tq, 64) and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ATTN_KERNEL_TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("Tq,Tk,hd,hdv,window", [
+    (300, 300, 80, 80, None), (150, 400, 80, 80, 128), (200, 200, 96, 64, None),
+    (2048, 2048, 80, 80, 4096)])
+def test_flash_attention_wgmma_body_writes_the_log_sum_exp(cuda, Tq, Tk, hd,
+                                                           hdv, window):
+    # the training forward: bf16 q, k, v with the rows' log-sum-exps
+    q, k, v, _ = _bwd_inputs(cuda, 2, 8, 2, Tq, Tk, hd, hdv, "bfloat16")
+    before = dict(fa.flash_attention.launches_by_body)
+    out, lse = fa._forward(q, k, v, True, window, None, hd ** -0.5,
+                           with_lse=True)
+    want_out, want = ref.flash_attention_ref(q, k, v, window=window,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    assert _body_launched(before) == {"wgmma": 1}
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(out.float(), want_out.float(),
+                               **ATTN_KERNEL_TOL["bfloat16"])
+
+
+def test_flash_attention_counts_launches_by_body(cuda):
+    # danube's heads: a prefill on the wgmma body, a decode step on the mma
+    # body, fp32 q on the CUDA cores, K/V rows off 16 bytes on the mma body
+    ops.reset_launch_counts()
+    for Tq, q_dt, offset, body in ((400, "bfloat16", False, "wgmma"),
+                                   (1, "bfloat16", False, "mma"),
+                                   (100, "float32", False, "simt"),
+                                   (400, "bfloat16", True, "mma")):
+        before = dict(fa.flash_attention.launches_by_body)
+        _attention_case(cuda, 2, 32, 8, Tq, 400, 80, q_dt, "float32", True,
+                        4096, None, seed=Tq, bf16_cache=True, offset=offset)
+        assert _body_launched(before) == {body: 1}, (Tq, q_dt, offset)
+    assert ops.launch_counts()["flash_attention"] == 4
+    assert fa.flash_attention.launches_by_body == {"simt": 1, "mma": 2,
+                                                   "wgmma": 1}
+    ops.reset_launch_counts()
+    assert set(fa.flash_attention.launches_by_body.values()) == {0}
 
 
 def test_flash_attention_rejects_v_wider_than_k(cuda):
