@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain torch version on the card, and drives the port's
-main paths, each with the launch counts set to 0 just before it and read
-just after:
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (with
+``nvcc``'s register and spill report) and drives every path of the port on
+the card once, each with the launch counts set to 0 just before it and
+read just after, and with the checks of its outputs:
 
   * the Cobra compile -> batch -> compiled-tier path at TPC-DS SF1 size
     (2,880,404 orders, the row count of SF1 ``store_sales``; 100,000
     customers, SF1 ``customer``): ``join_probe``, ``build_direct_table``,
-    ``segment_reduce``;
+    ``segment_reduce``; then, after those counts are read, the compiled
+    tier's probe and fold hooks alone (host columns to the card, the
+    kernel, the result back), each held to the plain version, timed and
+    traced;
   * the serving loop (``ServingRuntime.serve``) at SF1: P0 compiled against
     2,000 orders, then fed the SF1 tables without ``analyze()``, so that
     drift re-optimizes it from the join to the prefetch plan; and P0, W_B
@@ -23,7 +26,10 @@ just after:
   * LM serving through ``Server.generate`` at the full published widths and
     depths of h2o-danube-1.8b (``flash_attention``) and rwkv6-3b
     (``rwkv6_scan``), seeded random weights: 4 requests of 1,000 / 2,000 /
-    3,000 / 4,500 prompt tokens, 32 new tokens each;
+    3,000 / 4,500 prompt tokens, 32 new tokens each; the prefill's first
+    kernel call held to the plain version per request, and the last decode
+    call, the decode logits to a full forward, and one prefill and one decode step traced (wall
+    and device busy);
   * the same serving traffic through qwen2-vl-72b (M-RoPE, head dim 128)
     at its published width cut to 24 of its 80 layers (145 GB of bf16
     weights at full depth do not fit one card's 80 GB; the cut is listed
@@ -43,11 +49,10 @@ just after:
     published configuration (24 layers, 1.83B parameters, AdamW, seeded
     weights, the ``SyntheticLM`` stream, 4 x 2,048 tokens a step, 10 steps),
     whose attention's backward is the ``flash_attention_bwd`` kernel (every
-    launch on its wgmma body); the backward kernel first held to its plain
-    version at the training attention shape of each family (the wgmma
-    body) and beside danube's at the inputs its CUDA-core body takes (rows
-    off 16 bytes, hd 45, fp32), and a first
-    step's gradients to the plain attention's; then the failure drill (a
+    launch on its wgmma body), each step timed with the caching
+    allocator's counters and one traced (device split by kind); a first
+    step's gradients held to the plain attention's, and one update to
+    AdamW's formulas; then the failure drill (a
     crash at step 7 of 12, resumed from the step-5 checkpoint,
     bit-identical to an uninterrupted run) at the published width cut to
     2 layers;
@@ -55,11 +60,8 @@ just after:
     published configuration (32 layers, 3.17B parameters, 4 x 2,048
     tokens a step in four 1-row microbatches, 6 steps), whose scan's
     backward is the ``rwkv6_scan_bwd`` kernel (every launch on its
-    tensor-core body), held first to its plain version on both bodies
-    (training's shape, a ragged T, one chunk, T 16 and 1, a state with a
-    final-state cotangent, the decay floor across a chunk and a sub-chunk
-    boundary, fp32, rows off 16 bytes, K 16 to 64 and V 16 to 256), and
-    a first step's gradients to the plain scan's at 2 layers;
+    tensor-core body), and a first step's gradients held to the plain
+    scan's at 2 layers;
   * training under a sharding policy with remat on a 1x1 mesh of the card:
     danube and rwkv6-3b under ``fsdp_tp``, and llama4-scout-17b-a16e at
     its published width cut to 1 of 48 layers under ``fsdp_tp_ep``, the
@@ -71,15 +73,19 @@ just after:
   * the five examples' twins (``examples/*_torch.py``) through their
     ``main()``, each held to what its reference example checks.
 
-It checks the outputs, then times every kernel at the shapes those paths
-give it.
+Its readings are of the paths no benchmark cell measures; device traces
+are read with the harness's own pieces (``bench/tracing.py``). The other
+measurements have their own owners: each kernel against its plain
+version is ``python3 -m pytest -m cuda tests/test_torch_cuda.py``, a
+kernel's time against another checkout's ``chip_kernel_ab.py``, and the
+cells ``bench/run.py``.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``; the two lines before it
-are the ``kernels`` JSON line and the card's name and power limit as
-``nvidia-smi`` reports them. Without CUDA, or outside a checkout of the
-repository, it exits non-zero and prints no result. Imports nothing of JAX
-and nothing of the reference package ``repro``.
+are the ``total`` phase line (the run's wall) and the card's name and
+power limit as ``nvidia-smi`` reports them. Without CUDA, or outside a
+checkout of the repository, it exits non-zero and prints no result.
+Imports nothing of JAX and nothing of the reference package ``repro``.
 """
 
 import dataclasses
@@ -95,11 +101,7 @@ from pathlib import Path
 N_ORDERS = 2_880_404        # TPC-DS SF1 store_sales rows
 N_CUSTOMERS = 100_000       # TPC-DS SF1 customer rows
 N_TASKS = 2_880_404         # Wilos tasks; roles at the Exp-4 10:1 ratio
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
-TIMED_LAUNCHES = 50
 DEVICE = "cuda"
-BF16_TENSOR_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate
 
 # LM serving traffic: prompt lengths (the last past h2o-danube's 4,096
 # window), cache length and new tokens per request
@@ -149,6 +151,18 @@ LLAMA4_LAYERS = 13
 # with all 384 experts, top-8 and the shared expert, 39.9 GB (3 layers
 # would be 74.1 GB); no expert is cut
 KIMI_LAYERS = 2
+# the serve phases, in order: (architecture, the kernel its attention or
+# scan launches, the ops entry that calls it, the layers it is cut to, or
+# None for its published depth)
+SERVES = (
+    ("h2o-danube-1.8b", "flash_attention", "attention", None),
+    ("rwkv6-3b", "rwkv6_scan", "rwkv_scan", None),
+    ("qwen2-vl-72b", "flash_attention", "attention", QWEN2_VL_LAYERS),
+    ("minicpm3-4b", "flash_attention", "attention", None),
+    ("zamba2-1.2b", "flash_attention", "attention", None),
+    ("seamless-m4t-large-v2", "flash_attention", "attention", None),
+    ("llama4-scout-17b-a16e", "flash_attention", "attention", LLAMA4_LAYERS),
+    ("kimi-k2-1t-a32b", "flash_attention", "attention", KIMI_LAYERS))
 # training: h2o-danube-1.8b at its full published configuration, 4 x 2,048
 # tokens a step (8,192), 10 steps, one of them traced
 TRAIN_ARCH = "h2o-danube-1.8b"
@@ -156,12 +170,11 @@ TRAIN_BATCH = 4
 TRAIN_T = 2048
 TRAIN_STEPS = 10
 TRAIN_TRACE_STEP = 5
-TRAIN_CROSS_TK = 2560       # cross attention's keys (Tq != Tk) in the parity
 # training rwkv6-3b at its full published configuration (32 layers, d
 # 2,560, 40 heads of 64, d_ff 8,960, vocab 65,536; 3.17 B parameters),
 # TRAIN_RWKV_BATCH x 2,048 tokens a step in TRAIN_RWKV_MICROBATCH
 # microbatches, the peak under about 75 GB of the card's 85.0 GB.
-# tools/train_peak_memory.py on an H100 80GB HBM3 (700 W): at once, 1 row
+# Measured on an H100 80GB HBM3 (700 W): at once, 1 row
 # peaked at 49.3 GB, 2 at 67.0 GB (0.66-0.79 s a step), 3 ran out of
 # memory; 4 rows in two 2-row microbatches ran out too; in 1-row
 # microbatches (the fp32 gradient sums add 12.7 GB) 2 and 4 rows peaked at
@@ -201,22 +214,11 @@ TRAIN_KERNELS = {
             "flash_attention_ref", "wgmma", ("flash_fwd", "flash_bwd_wg")),
     "ssm": ("rwkv6_scan", "rwkv6_scan_bwd", "rwkv_scan", "rwkv6_scan_ref",
             "mma", ("rwkv6_fwd", "rwkv6_bwd_chunk_mma"))}
-# a profiler trace's warm-up step, in seconds before the calls it keeps,
-# and the traces tried before a reading is "not measured"
-TRACE_WARM_S = 0.25
-TRACE_TRIES = 3
 # the caching allocator's counters read around each training step: a
 # cudaMalloc (num_device_alloc) or a retry after freeing the cache
 # (num_alloc_retries) synchronizes, and shows in that step's wall
 ALLOC_COUNTERS = ("num_alloc_retries", "num_device_alloc", "num_device_free",
                   "num_ooms")
-# the backward kernel against its plain version in fp32 over the same bf16
-# inputs: dq, dk, dv within this many bf16 roundings (2**-8) of their peak
-# (one rounding of the output; the rest, the fp32 sums' order)
-BWD_TOL = 2
-# the same for fp32 inputs (the CUDA-core body): the fp32 sums' order, as a
-# fraction of the peak
-BWD_TOL_FP32 = 1e-4
 # a first step's gradients, kernel against plain attention (both bf16), per
 # leaf relative L2: within twice the plain attention's own bf16-vs-fp32
 # error, and never held tighter than this
@@ -342,266 +344,14 @@ def phase_build() -> None:
                     in build.ptxas_report.items()}})
 
 
-def phase_kernel_parity() -> None:
-    """Each kernel against its plain torch version on the same card inputs."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels import ops, ref
-    dev = DEVICE
-    rng = np.random.default_rng(11)
-    cases = []
-
-    def probe_case(name, probe, build_keys, key_space):
-        probe = torch.as_tensor(np.asarray(probe, np.int32), device=dev)
-        keys = torch.as_tensor(np.asarray(build_keys, np.int32), device=dev)
-        slots = ops.build_direct_table(keys, key_space)
-        slots_plain = ref.build_direct_table_ref(keys, key_space)
-        sync()
-        check(torch.equal(slots, slots_plain),
-              f"build_direct_table {name}")
-        got = ops.join_probe(probe, slots)
-        plain = ref.slot_gather_ref(probe, slots_plain)
-        sync()
-        check(torch.equal(got, plain),
-              f"join_probe {name}")
-        want = ref.join_probe_np(probe.cpu().numpy(), keys.cpu().numpy())
-        check(np.array_equal(got.cpu().numpy(), want),
-              f"join_probe {name} vs numpy")
-        cases.append({"kernel": "join_probe", "case": name, "n": int(probe.shape[0]),
-                      "m": key_space, "max_abs_err": 0})
-
-    # the cases of tests/test_kernel_parity.py::TestJoinProbeParity
-    probe_case("empty_probe_side", [], [3, 1, 4], 8)
-    probe_case("empty_build_side", [0, 1, 2], [], 0)
-    probe_case("all_miss_keys", [100, 200, 300, 7], [1, 2, 3], 512)
-    probe_case("duplicate_probe_keys", [2, 2, 5, 2, 5, 9], [9, 5, 2], 16)
-    probe_case("random_sweep", rng.integers(0, 4096, size=3000),
-               rng.permutation(4096)[:1500], 4096)
-    probe_case("duplicate_build_keys", [1, 2, 3, 4], [2, 4, 2, 4, 1], 8)
-    probe_case("sf1_orders_customer",
-               rng.integers(0, N_CUSTOMERS, size=N_ORDERS),
-               rng.permutation(N_CUSTOMERS), N_CUSTOMERS)
-
-    for n, groups in ((0, 4), (1000, 0), (5000, 1), (5000, 7), (100_000, 600),
-                      (N_ORDERS, 1), (N_ORDERS, 7), (N_ORDERS, 600),
-                      (N_ORDERS, 5000)):
-        segs = torch.as_tensor(rng.integers(0, max(groups, 1), size=n)
-                               .astype(np.int32), device=dev)
-        if groups > 2:
-            segs[segs == 1] = 2                    # segment 1 stays empty
-        ints = torch.as_tensor(rng.integers(-50, 50, size=n).astype(np.float32),
-                               device=dev)
-        for op in ref.SEGMENT_OPS:
-            got = ops.segment_reduce(ints, segs, groups, op=op)
-            plain = ref.segment_reduce_ref(ints, segs, groups, op=op)
-            sync()
-            check(torch.equal(got, plain),
-                  f"segment_reduce {op} n={n} G={groups}")
-            cases.append({"kernel": "segment_reduce", "case": f"int_{op}", "n": n,
-                          "g": groups, "max_abs_err": 0})
-        floats = torch.as_tensor(rng.uniform(0, 1, size=n).astype(np.float32),
-                                 device=dev)
-        got = ops.segment_reduce(floats, segs, groups, op="sum")
-        plain = ref.segment_reduce_ref(floats, segs, groups, op="sum")
-        sync()
-        # rtol 1e-5: the kernel sums in float32 in a fixed blocked order, the
-        # plain version in float64 rounded once
-        torch.testing.assert_close(got, plain, rtol=1e-5, atol=0)
-        cases.append({"kernel": "segment_reduce", "case": "float_sum", "n": n,
-                      "g": groups, "rtol": 1e-5,
-                      "max_abs_err": float((got - plain).abs().max())
-                      if groups else 0.0})
-    # the edges of the 16-byte paths: N = 4k + 1, 2, 3 and bases off 16
-    # bytes (a view one element into its buffer), on the scalar route the
-    # same rows in the same order: the same bits as the aligned call
-    def view(a, offset):
-        a = np.asarray(a)
-        return torch.as_tensor(np.concatenate([np.zeros(offset, a.dtype), a]),
-                               device=dev)[offset:]
-
-    for n in (N_ORDERS + 1, N_ORDERS + 2, N_ORDERS + 3):
-        for offset in (0, 1):
-            probe = rng.integers(-3, N_CUSTOMERS + 3, size=n).astype(np.int32)
-            keys = rng.permutation(N_CUSTOMERS).astype(np.int32)
-            slots = ops.build_direct_table(view(keys, offset), N_CUSTOMERS)
-            got = ops.join_probe(view(probe, offset), slots)
-            sync()
-            check(np.array_equal(got.cpu().numpy(), ref.join_probe_np(probe, keys)),
-                  f"join_probe n={n} offset={offset} vs numpy")
-            cases.append({"kernel": "join_probe", "case": f"ragged_view+{offset}",
-                          "n": n, "m": N_CUSTOMERS, "max_abs_err": 0})
-        for groups in (1, 7):
-            segs = rng.integers(-1, groups + 1, size=n).astype(np.int32)
-            ints = rng.integers(-50, 50, size=n).astype(np.float32)
-            floats = rng.uniform(0, 1, size=n).astype(np.float32)
-            for op in ref.SEGMENT_OPS:
-                plain = ref.segment_reduce_ref(view(ints, 0), view(segs, 0),
-                                               groups, op=op)
-                for offset in (0, 1):
-                    got = ops.segment_reduce(view(ints, offset),
-                                             view(segs, offset), groups, op=op)
-                    sync()
-                    check(torch.equal(got, plain),
-                          f"segment_reduce {op} n={n} G={groups} +{offset}")
-            cases.append({"kernel": "segment_reduce", "case": "int_ops_ragged_view",
-                          "n": n, "g": groups, "max_abs_err": 0})
-            runs = [ops.segment_reduce(view(floats, offset), view(segs, offset),
-                                       groups) for offset in (0, 0, 0, 1)]
-            plain = ref.segment_reduce_ref(view(floats, 0), view(segs, 0), groups)
-            sync()
-            # three calls back to back and the view: bit-identical
-            check(all(torch.equal(r, runs[0]) for r in runs),
-                  f"segment_reduce n={n} G={groups}: sums differ between calls")
-            torch.testing.assert_close(runs[0], plain, rtol=1e-5, atol=0)
-            cases.append({"kernel": "segment_reduce", "case": "float_sum_repeat_view",
-                          "n": n, "g": groups, "rtol": 1e-5, "bit_identical": True,
-                          "max_abs_err": float((runs[0] - plain).abs().max())})
-    # two streams in turn, each with its own ticket counter
-    vals = torch.as_tensor(rng.uniform(-1, 1, N_TASKS).astype(np.float32),
-                           device=dev)
-    zeros = torch.zeros(N_TASKS, dtype=torch.int32, device=dev)
-    sync()
-    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
-    sums = []
-    for i in range(4):
-        with torch.cuda.stream(streams[i % 2]):
-            sums.append(ops.segment_reduce(vals, zeros, 1))
-    sync()
-    check(all(torch.equal(x, sums[0]) for x in sums),
-          "segment_reduce: sums differ between streams")
-    cases.append({"kernel": "segment_reduce", "case": "two_streams", "n": N_TASKS,
-                  "g": 1, "bit_identical": True, "max_abs_err": 0.0})
-    emit({"phase": "kernel_parity", "cases": len(cases), "tolerance":
-          {"join_probe": "atol=0", "segment_reduce": "exact on integers, "
-           "rtol=1e-5 on random fp32 sums"}, "results": cases})
-
-
-# the reference's kernel sweeps (tests/test_kernels.py:23-32 and :70-76)
-ATTN_SWEEP = [
-    # (B, H, KV, Tq, Tk, hd, q dtype, kv dtype, causal, window, chunk)
-    (1, 2, 2, 64, 64, 32, "float32", "float32", True, None, None),
-    (2, 4, 2, 64, 64, 16, "float32", "float32", True, None, None),
-    (1, 2, 1, 128, 128, 32, "bfloat16", "bfloat16", True, None, None),
-    (1, 2, 2, 64, 64, 32, "float32", "float32", True, 16, None),
-    (1, 2, 2, 64, 64, 32, "float32", "float32", True, None, 32),
-    (1, 1, 1, 32, 128, 32, "float32", "float32", True, None, None),
-    (1, 2, 2, 64, 64, 64, "float32", "float32", False, None, None),
-    # the serving shapes: hd 80, decode over a ragged cache, ragged Tq = Tk,
-    # bf16 queries over the fp32 cache
-    (4, 32, 8, 1, 4531, 80, "bfloat16", "float32", True, 4096, None),
-    (2, 8, 2, 1, 77, 80, "float32", "float32", True, 64, None),
-    (1, 4, 4, 45, 45, 32, "float32", "float32", True, None, None),
-    (1, 32, 8, 300, 300, 80, "bfloat16", "float32", True, 128, None),
-    (1, 32, 8, 300, 300, 80, "bfloat16", "bfloat16", True, None, None),
-    # the tensor-core body: an fp32 cache that holds bf16 values (the
-    # serving path's; lo products skipped) and a random one (lo taken), Tq
-    # and Tk off the 16 / 64 tiles, hd 16 / 32 / 64, the chunk mask
-    (1, 32, 8, 1100, 1100, 80, "bfloat16", "bf16_in_float32", True, 1024, None),
-    (1, 32, 8, 1100, 1100, 80, "bfloat16", "float32", True, 1024, None),
-    (2, 8, 2, 77, 200, 16, "bfloat16", "float32", True, None, None),
-    (1, 4, 1, 130, 130, 32, "bfloat16", "bf16_in_float32", True, 100, None),
-    (1, 4, 2, 200, 333, 64, "bfloat16", "float32", True, None, None),
-    (1, 4, 2, 250, 250, 80, "bfloat16", "float32", True, None, 64),
-    (4, 32, 8, 1, 4531, 80, "bfloat16", "bf16_in_float32", True, 4096, None),
-    # head dims 45 (an odd tail, rows copied element by element) and 96 (the
-    # widest), and K/V one element into their buffers (rows off 16 bytes:
-    # element copies, "+1")
-    (1, 8, 2, 200, 333, 45, "bfloat16", "float32", True, None, None),
-    (2, 4, 1, 1, 600, 45, "bfloat16", "bfloat16", True, None, 256),
-    (1, 8, 2, 300, 300, 96, "bfloat16", "float32", True, 256, None),
-    (2, 8, 2, 1, 900, 96, "bfloat16", "bf16_in_float32", True, None, None),
-    (1, 8, 2, 300, 300, 80, "bfloat16", "float32+1", True, 128, None),
-    (2, 8, 2, 1, 700, 64, "bfloat16", "bfloat16+1", True, None, None),
-    # the wide heads at their models' serving shapes: a 4,500-token prefill
-    # and decode over a ragged 4,531-slot cache, with bf16 queries over a
-    # random fp32 cache (the tensor cores, lo products taken) and fp32 over
-    # fp32 (the CUDA cores). hd 128: internlm2-20b (H 48, KV 8) and
-    # qwen2-vl-72b (H 64, KV 8); hd 160: stablelm-12b (H 32, KV 8), the
-    # one-stage 8-warp blocks over fp32
-    (1, 48, 8, 4500, 4500, 128, "bfloat16", "float32", True, None, None),
-    (1, 48, 8, 4500, 4500, 128, "float32", "float32", True, None, None),
-    (4, 48, 8, 1, 4531, 128, "bfloat16", "float32", True, None, None),
-    (4, 48, 8, 1, 4531, 128, "float32", "float32", True, None, None),
-    (1, 64, 8, 4500, 4500, 128, "bfloat16", "float32", True, None, None),
-    (1, 64, 8, 4500, 4500, 128, "float32", "float32", True, None, None),
-    (4, 64, 8, 1, 4531, 128, "bfloat16", "float32", True, None, None),
-    (4, 64, 8, 1, 4531, 128, "float32", "float32", True, None, None),
-    (1, 32, 8, 4500, 4500, 160, "bfloat16", "float32", True, None, None),
-    (1, 32, 8, 4500, 4500, 160, "float32", "float32", True, None, None),
-    (4, 32, 8, 1, 4531, 160, "bfloat16", "float32", True, None, None),
-    (4, 32, 8, 1, 4531, 160, "float32", "float32", True, None, None),
-    # no causal mask, bf16 queries (seamless-m4t: H = KV = 16, hd 64): the
-    # encoder over 4 x 4,608 frames (K/V bf16, not cached), the cross
-    # attention at prefill (a ragged Tq 4,500 < Tk 4,608) and at decode over
-    # the fp32 cross cache, holding bf16 values or not; small ragged Tq <
-    # Tk and Tq > Tk
-    (4, 16, 16, 4608, 4608, 64, "bfloat16", "bfloat16", False, None, None),
-    (4, 16, 16, 4500, 4608, 64, "bfloat16", "bf16_in_float32", False, None,
-     None),
-    (4, 16, 16, 1, 4608, 64, "bfloat16", "bf16_in_float32", False, None, None),
-    (4, 16, 16, 1, 4608, 64, "bfloat16", "float32", False, None, None),
-    (1, 4, 4, 77, 300, 64, "bfloat16", "float32", False, None, None),
-    (1, 4, 2, 300, 77, 64, "bfloat16", "float32", False, None, None),
-    # zamba2's shared block (H = KV = 32, hd 64) and llama4-scout (H 40 /
-    # KV 8, hd 128, chunk 8,192: inactive below 8,192 keys) at their serving
-    # prefill and decode
-    (1, 32, 32, 4500, 4500, 64, "bfloat16", "float32", True, None, None),
-    (4, 32, 32, 1, 4531, 64, "bfloat16", "float32", True, None, None),
-    (1, 40, 8, 4500, 4500, 128, "bfloat16", "float32", True, None, 8192),
-    (4, 40, 8, 1, 4531, 128, "bfloat16", "float32", True, None, 8192),
-]
-# MLA (minicpm3-4b: H = KV = 40, q.k head dim 64 + 32 = 96, v head dim 64)
-# as attention_mla hands it over: k the expanded latent's nope part with the
-# shared rope key appended, v a strided slice of the expanded latent
-# (B, H, Tq, Tk, q dtype, kv dtype)
-MLA_SWEEP = [
-    (1, 40, 4500, 4500, "bfloat16", "float32"),
-    (4, 40, 1, 4531, "bfloat16", "float32"),
-    (1, 40, 4500, 4500, "float32", "float32"),
-    (4, 40, 1, 4531, "float32", "float32"),
-]
-MLA_DIMS = (64, 32, 64)   # qk_nope, qk_rope, v head dims
-RWKV_SWEEP = [
-    # (B, H, T, K, V, dtype, initial state, constant log decay)
-    (1, 2, 64, 16, 16, "float32", False, None),
-    (2, 3, 128, 32, 32, "float32", False, None),
-    (1, 2, 64, 16, 32, "float32", False, None),
-    (1, 2, 96, 16, 16, "bfloat16", False, None),
-    # ragged T, one-token decode from a state, the serving heads, and the
-    # extreme decay of tests/test_kernels.py:97-108
-    (2, 3, 45, 32, 32, "float32", True, None),
-    (4, 40, 1, 64, 64, "bfloat16", True, None),
-    (1, 40, 300, 64, 64, "bfloat16", True, None),
-    (1, 1, 64, 16, 16, "float32", False, -40.0),
-    # the chunk-parallel scan: several 64-token chunks with a ragged tail,
-    # from zero and from a state, and the -40 decay across a chunk boundary
-    (1, 4, 200, 64, 64, "float32", False, None),
-    (1, 4, 200, 64, 64, "float32", True, None),
-    (1, 4, 4500, 64, 64, "bfloat16", False, None),
-    (1, 4, 4500, 64, 64, "bfloat16", True, None),
-    (1, 2, 130, 64, 64, "float32", True, -40.0),
-    # r/k/v one element into their buffers (rows off 16 bytes: element
-    # staging in phases A and C, full 32-token stages included)
-    (1, 4, 200, 16, 16, "float32+1", True, None),
-    (1, 4, 300, 64, 64, "bfloat16+1", False, None),
-]
-# flash_attention against its plain version, by the output's (q's) type.
-# fp32: tests/test_kernels.py:47. bf16: both sides accumulate in fp32, so
-# the outputs differ by one bf16 rounding at most (2**-7 relative); rtol is
-# two bf16 ulps, atol covers the fp32 sums' order near zero. (The
-# reference's 2e-2 is as large as a typical output over 4,096 keys.)
-ATTN_TOL = {"float32": {"rtol": 2e-5, "atol": 2e-5},
-            "bfloat16": {"rtol": 1.6e-2, "atol": 1e-4}}
-RWKV_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # tests/test_kernels.py:90
-RWKV_STATE_TOL = 1e-3
-
-
 def attention_close(got, want, what: str) -> float:
     """Holds a flash_attention output to its plain version's within
-    ``ATTN_TOL``; returns the largest absolute difference."""
+    ``ATTN_KERNEL_TOL`` (``tests/_torch_cases.py``, on the path ``main``
+    sets); returns the largest absolute difference."""
     import torch
+    from _torch_cases import ATTN_KERNEL_TOL
     sync()
-    tol = ATTN_TOL[_dt(got)]
+    tol = ATTN_KERNEL_TOL[_dt(got)]
     got, want = got.float(), want.float()
     torch.testing.assert_close(got, want, msg=lambda m: f"{what}: {m}", **tol)
     return float((got - want).abs().max()) if got.numel() else 0.0
@@ -609,9 +359,10 @@ def attention_close(got, want, what: str) -> float:
 
 def scan_close(got, want, what: str) -> float:
     """Holds rwkv6_scan's (y, state) to the plain version's within
-    ``RWKV_TOL`` and ``RWKV_STATE_TOL``; returns the largest absolute
-    difference of either."""
+    ``RWKV_TOL`` and ``RWKV_STATE_TOL`` (``tests/_torch_cases.py``);
+    returns the largest absolute difference of either."""
     import torch
+    from _torch_cases import RWKV_STATE_TOL, RWKV_TOL
     sync()
     (y, s), (y0, s0) = got, want
     tol = RWKV_TOL[_dt(y)]
@@ -628,80 +379,6 @@ def scan_close(got, want, what: str) -> float:
 
 def _dt(t) -> str:
     return str(t.dtype).removeprefix("torch.")
-
-
-def phase_lm_kernel_parity() -> None:
-    """flash_attention and rwkv6_scan against their plain versions."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels import ops, ref
-    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    rng = np.random.default_rng(12)
-
-    def on(shape, dt):
-        """Seeded normals of ``shape``; "bf16_in_float32" is an fp32 tensor
-        of bf16 values (what the serving path's cache holds), a "+1" suffix
-        a view one element into its buffer."""
-        offset = int(dt.endswith("+1"))
-        dt = dt.removesuffix("+1")
-        x = torch.as_tensor(rng.standard_normal(
-            math.prod(shape) + offset).astype(np.float32), device=DEVICE)
-        if dt == "bf16_in_float32":
-            x = x.bfloat16().float()
-        return x.to(dts.get(dt, torch.float32))[offset:].view(shape)
-
-    cases = []
-    for B, H, KV, Tq, Tk, hd, qd, kd, causal, window, chunk in ATTN_SWEEP:
-        q, k, v = on((B, H, Tq, hd), qd), on((B, KV, Tk, hd), kd), \
-            on((B, KV, Tk, hd), kd)
-        got = ops.attention(q, k, v, causal=causal, window=window, chunk=chunk)
-        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       chunk=chunk)
-        shape = [B, H, KV, Tq, Tk, hd]
-        err = attention_close(got, want, f"flash_attention {shape} {qd}/{kd}")
-        cases.append({"kernel": "flash_attention", "shape": shape,
-                      "types": [qd, kd], "causal": causal, "window": window,
-                      "chunk": chunk, "tol": ATTN_TOL[qd], "max_abs_err": err})
-        del q, k, v, got, want
-    nope, rdim, vhd = MLA_DIMS
-    for B, H, Tq, Tk, qd, kd in MLA_SWEEP:
-        q = on((B, Tq, H, nope + rdim), qd).transpose(1, 2)
-        kv = on((B, Tk, H, nope + vhd), kd)
-        rope = on((B, Tk, 1, rdim), kd)
-        k = torch.cat([kv[..., :nope], rope.expand(B, Tk, H, rdim)],
-                      dim=-1).transpose(1, 2)
-        v = kv[..., nope:].transpose(1, 2)
-        scale = 1.0 / math.sqrt(nope + rdim)
-        got = ops.attention(q, k, v, causal=True, scale=scale)
-        want = ref.flash_attention_ref(q, k, v, causal=True, scale=scale)
-        check(tuple(got.shape) == (B, H, Tq, vhd),
-              f"flash_attention MLA: output {tuple(got.shape)}")
-        shape = [B, H, H, Tq, Tk, nope + rdim, vhd]
-        err = attention_close(got, want, f"flash_attention MLA {shape} {qd}/{kd}")
-        cases.append({"kernel": "flash_attention", "shape": shape,
-                      "types": [qd, kd], "causal": True, "window": None,
-                      "chunk": None, "v_strided": not v.is_contiguous(),
-                      "tol": ATTN_TOL[qd], "max_abs_err": err})
-        del q, kv, rope, k, v, got, want
-    for B, H, T, K, V, dt, with_state, decay in RWKV_SWEEP:
-        r, k, v = on((B, H, T, K), dt), on((B, H, T, K), dt), on((B, H, T, V), dt)
-        if decay is None:
-            w = -torch.exp(on((B, H, T, K), "float32") * 1.5)
-        else:
-            w = torch.full((B, H, T, K), decay, device=DEVICE)
-        u = on((H, K), "float32")
-        state = on((B, H, K, V), "float32") if with_state else None
-        got = ops.rwkv_scan(r, k, v, w, u, state=state)
-        want = ref.rwkv6_scan_ref(r, k, v, w, u, state=state)
-        shape = [B, H, T, K, V]
-        err = scan_close(got, want, f"rwkv6_scan {shape} {dt}")
-        cases.append({"kernel": "rwkv6_scan", "shape": shape,
-                      "type": dt, "state": with_state, "decay": decay,
-                      "tol": RWKV_TOL[_dt(got[0])], "max_abs_err": err})
-    emit({"phase": "lm_kernel_parity", "cases": len(cases),
-          "tolerance": {"flash_attention": ATTN_TOL, "rwkv6_scan": RWKV_TOL,
-                        "rwkv6_scan_state": RWKV_STATE_TOL},
-          "results": cases})
 
 
 def _outputs_equal(a, b) -> bool:
@@ -757,7 +434,8 @@ def phase_main_path(db):
 
 def phase_navigation(db, main_out):
     """P0 as written (empty rule set): its navigation loop probes on the
-    card through join_probe."""
+    card through join_probe. Returns the loop, whose probe hook
+    ``phase_hooks`` checks and reads."""
     from repro_torch.api import CobraSession, OptimizerConfig, RuleSet
     from repro_torch.core import CostCatalog
     from repro_torch.kernels import ops
@@ -786,13 +464,15 @@ def phase_navigation(db, main_out):
           "kernel_probes": probes,
           "launches": {k: after[k] - before[k] for k in after},
           "outputs_len": len(out), "checksum": int(sum(out))})
-    return exe
+    return next(iter(exe.lower()._loops.values()))
 
 
 def phase_fold():
     """W_B and W_F on the Wilos tables, with the empty and the default rule
     sets: the empty-rule plans fold their integer accumulators through
-    segment_reduce on the card."""
+    segment_reduce on the card. Returns the database, the empty-rule
+    plans' outputs and W_F's loop, whose fold hook ``phase_hooks`` checks
+    and reads."""
     import numpy as np
     from repro_torch.api import CobraSession, OptimizerConfig, RuleSet
     from repro_torch.core import CostCatalog
@@ -805,7 +485,7 @@ def phase_fold():
     tasks = db.table("tasks")
     want = {"W_B": {"n": tasks.nrows},
             "W_F": {"states": int(tasks.host("t_state").astype(np.int64).sum())}}
-    report, lowered, fold_outs = {}, None, {}
+    report, loop, fold_outs = {}, None, {}
     for name, make in (("W_B", make_wilos_b), ("W_F", make_wilos_f)):
         outs = {}
         for rules in ("empty", "default"):
@@ -826,7 +506,7 @@ def phase_fold():
                 check(after["segment_reduce"] > before["segment_reduce"],
                       f"{name}: segment_reduce never launched")
                 if name == "W_F":
-                    lowered = exe.lower()
+                    loop = next(iter(exe.lower()._loops.values()))
             outs[rules] = res.results[0].outputs
             report[f"{name}/{rules}"] = {
                 "plan": exe.describe(), "simulated_s": res.simulated_s,
@@ -839,7 +519,44 @@ def phase_fold():
         fold_outs[name] = outs["empty"]
     emit({"phase": "fold", "tasks": N_TASKS, "roles": db.table("roles").nrows,
           "db_build_s": build_s, "runs": report})
-    return db, lowered, fold_outs
+    return db, fold_outs, loop
+
+
+def phase_hooks(order_db, wilos_db, nav_loop, fold_loop):
+    """The compiled tier's probe and fold hooks alone, at SF1, after the
+    main path's launch counts are read: each call's output held to the
+    plain version (the probe's rows to ``join_probe_np``, its slot table to
+    ``build_direct_table_ref``, the fold's sum to ``segment_reduce_ref``),
+    then each call timed and traced (``_step_ms``, median of 15): the wall
+    a call, the device's busy share and its time by name, the pageable
+    copies beside the kernel (ROADMAP A5)."""
+    import numpy as np
+    import torch
+    from repro_torch.compiled import exec as cexec
+    from repro_torch.kernels import ref
+    customer = order_db.table("customer")
+    index = cexec._ProbeIndex(("hook",), customer, "c_customer_sk")
+    keys = order_db.table("orders").host("o_customer_sk")
+    rows = cexec._probe(nav_loop, index, keys)     # builds the slot table
+    check(np.array_equal(rows, ref.join_probe_np(
+        keys, customer.host("c_customer_sk"))),
+        "probe hook rows != join_probe_np")
+    check(torch.equal(index.direct, ref.build_direct_table_ref(
+        customer.column("c_customer_sk"), index.key_space())),
+        "probe hook slot table != build_direct_table_ref")
+    deltas = wilos_db.table("tasks").host("t_state").astype(np.float64)
+    total = cexec._fold_sum(fold_loop, deltas, DEVICE)
+    # integer states summing below 2**24: every fp32 partial sum is exact
+    want = float(ref.segment_reduce_ref(
+        torch.as_tensor(deltas, dtype=torch.float32),
+        torch.zeros(deltas.shape[0], dtype=torch.int32), 1)[0])
+    check(total == want, f"fold hook sum {total} != segment_reduce_ref {want}")
+    emit({"phase": "hooks", "orders": N_ORDERS, "customers": N_CUSTOMERS,
+          "tasks": N_TASKS,
+          "probe_hook": _step_ms(
+              lambda: cexec._probe(nav_loop, index, keys), reps=15),
+          "fold_sum_hook": _step_ms(
+              lambda: cexec._fold_sum(fold_loop, deltas, DEVICE), reps=15)})
 
 
 def phase_serving(order_db, wilos_db, main_out, fold_outs):
@@ -855,9 +572,9 @@ def phase_serving(order_db, wilos_db, main_out, fold_outs):
     (b) The kernels inside the loop: P0, W_B and W_F as written (empty rule
     set), compiled tier from the first batch; ``join_probe``,
     ``build_direct_table`` and ``segment_reduce`` must launch, and the
-    outputs equal the ``navigation`` and ``fold`` phases'.
-
-    Returns the launch counts of the whole phase, from 0 just before it."""
+    outputs equal the ``navigation`` and ``fold`` phases'; each serve's
+    wall and device busy time (``_device_busy``). The line's launch counts
+    are the whole phase's, from 0 just before it."""
     import dataclasses
     from repro_torch.api import CobraSession, OptimizerConfig, RuleSet
     from repro_torch.core import CostCatalog
@@ -977,7 +694,6 @@ def phase_serving(order_db, wilos_db, main_out, fold_outs):
           + folds.compiler.compiled_batches,
           "recompiles": nav.recompiles + folds.recompiles,
           "launches": inside}, "reduced": []})
-    return ops.launch_counts()
 
 
 def phase_cluster(wilos_db):
@@ -986,8 +702,8 @@ def phase_cluster(wilos_db):
     with distinct worklists, W_B and W_F, one ``analyze()`` mid-stream. The
     same stream through one ``ServingRuntime(batch_size=8)`` over an
     unsharded copy must give the same responses, bit for bit, and the same
-    tasks afterwards; W_E against numpy. Returns the cluster's launch
-    counts, from 0 just before its serving.
+    tasks afterwards; W_E against numpy. The line's launch counts are the
+    cluster's, from 0 just before its serving.
 
     The single worker serves over ``wilos_db`` itself: the cluster's
     coordinator took its own references to the same (immutable) tables
@@ -1090,7 +806,6 @@ def phase_cluster(wilos_db):
           "single_analyze_wall_s": t3s - t2s,
           "bit_identical_to_single_worker": True,
           "launches": launches, "reduced": []})
-    return launches
 
 
 class _Capture:
@@ -1124,19 +839,6 @@ class _Capture:
 
     def __exit__(self, *exc):
         setattr(self.ops, self.name, self.orig)
-
-
-def _moved(snap, device):
-    """A captured call with its tensors copied to ``device``."""
-    import torch
-
-    def mv(x):
-        if isinstance(x, (list, tuple)):
-            return type(x)(mv(y) for y in x)
-        return x.to(device) if torch.is_tensor(x) else x
-    return {"args": mv(snap["args"]),
-            "kwargs": {k: mv(v) for k, v in snap["kwargs"].items()},
-            "out": mv(snap["out"])}
 
 
 def _n_sites(arch) -> int:
@@ -1336,12 +1038,19 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
             prefill_errs.append(scan_close(
                 tuple(o[i:i + 1] for o in a["out"]),
                 ref.rwkv6_scan_ref(*args, **kw), what))
-    # the kernels line times the kernel at these inputs later: host copies,
-    # so the timed run below holds only the server's own memory
-    shapes = {"prefill": _moved(cap.first, "cpu"),
-              "decode": _moved(cap.last, "cpu")}
+    # the last decode call against the plain version: the split-key forward
+    # and flash_combine over the cache (seamless: its cross attention), or
+    # the scan's one token from the carried state
+    a = cap.last
+    what = f"{arch_name} last decode call"
+    if kernel == "flash_attention":
+        decode_call_err = attention_close(
+            a["out"], ref.flash_attention_ref(*a["args"], **a["kwargs"]), what)
+    else:
+        decode_call_err = scan_close(
+            a["out"], ref.rwkv6_scan_ref(*a["args"], **a["kwargs"]), what)
     del cap, a, args, kw
-    part("capture_and_prefill_parity")
+    part("capture_and_kernel_parity")
 
     # the main path, uninstrumented: launch counts from 0 just before it,
     # read just after
@@ -1508,6 +1217,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
             "launches_by_body": by_body,
             "capture_run_tokens_equal": capture_outs == outs,
             "prefill_layer0_max_abs_err": prefill_errs,
+            "last_decode_call_max_abs_err": decode_call_err,
             "decode_held_to": decode_held_to,
             "decode_vs_full_forward_max_abs_err": decode_err,
             "plain_attention_decode_vs_full_forward_max_abs_err": plain_err,
@@ -1540,7 +1250,7 @@ def phase_serve(arch_name: str, kernel: str, entry: str, layers=None):
     emit(line)
     del server
     torch.cuda.empty_cache()
-    return launches[kernel], shapes
+    return launches[kernel]
 
 
 def _decode_and_full_forward(server, prompts, outs):
@@ -1627,294 +1337,6 @@ def _head_dims(arch):
 # --------------------------------------------------------------------------
 # training
 # --------------------------------------------------------------------------
-
-# the training attention shape of each family the card can train (its
-# published heads, head dims and masks; queries and keys 2,048 long, B 1),
-# and danube's at its training batch (4): (label, B, H, KV, Tq, Tk, hd,
-# hdv, causal, window, chunk)
-def _train_attention_shapes():
-    from repro_torch.models import get_arch
-    out = []
-    for label, name in [("danube", "h2o-danube-1.8b"),
-                        ("qwen2-vl", "qwen2-vl-72b"),
-                        ("stablelm", "stablelm-12b"),
-                        ("llama4", "llama4-scout-17b-a16e"),
-                        ("zamba2", "zamba2-1.2b")]:
-        a = get_arch(name)
-        out.append((label, 1, a.n_heads, a.n_kv_heads, TRAIN_T, TRAIN_T,
-                    a.hd, a.hd, True, a.window, a.chunk_size))
-    m = get_arch("minicpm3-4b")
-    out.append(("minicpm3", 1, m.n_heads, m.n_heads, TRAIN_T, TRAIN_T,
-                m.qk_nope_dim + m.qk_rope_dim, m.vhd, True, None, None))
-    s = get_arch("seamless-m4t-large-v2")
-    out.append(("seamless encoder", 1, s.n_heads, s.n_kv_heads, TRAIN_T,
-                TRAIN_T, s.hd, s.hd, False, None, None))
-    out.append(("seamless cross", 1, s.n_heads, s.n_kv_heads, TRAIN_T,
-                TRAIN_CROSS_TK, s.hd, s.hd, False, None, None))
-    # llama4's chunk (8,192) is inactive at 2,048: the same heads under a
-    # chunk that crosses the sequence
-    l4 = get_arch("llama4-scout-17b-a16e")
-    out.append(("llama4 chunk 768", 1, l4.n_heads, l4.n_kv_heads, TRAIN_T,
-                TRAIN_T, l4.hd, l4.hd, True, None, 768))
-    # short, ragged tails of each (T 77; the cross one 77 over 130 keys)
-    out += [(f"{c[0]} tail", 1, c[2], c[3], 77, 77 if c[4] == c[5] else 130,
-             *c[6:]) for c in list(out)]
-    d = get_arch("h2o-danube-1.8b")
-    out.append(("danube train batch", TRAIN_BATCH, d.n_heads, d.n_kv_heads,
-                TRAIN_T, TRAIN_T, d.hd, d.hd, True, d.window, None))
-    return out
-
-
-# the backward's other body, the CUDA cores, beside danube's training
-# shape at B 1: bf16 rows off 16 bytes, a bf16 head dim the wgmma body is
-# not built for, and fp32 inputs: (label, B, H, KV, Tq, Tk, hd, hdv,
-# causal, window, chunk, type, rows off 16 bytes)
-def _simt_attention_shapes():
-    import torch
-    from repro_torch.models import get_arch
-    d = get_arch("h2o-danube-1.8b")
-    heads = (1, d.n_heads, d.n_kv_heads, TRAIN_T, TRAIN_T)
-    mask = (True, d.window, None)
-    return [("danube rows off 16 bytes", *heads, d.hd, d.hd, *mask,
-             torch.bfloat16, True),
-            ("danube heads at hd 45", *heads, 45, 45, *mask, torch.bfloat16,
-             False),
-            ("danube fp32", *heads, d.hd, d.hd, *mask, torch.float32, False)]
-
-
-def _off16(t):
-    """A copy of ``t`` whose buffer starts one element past its
-    allocation, so that no row is 16-byte aligned."""
-    import torch
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    return buf[1:].view(t.shape).copy_(t)
-
-
-def _bwd_inputs(B, H, KV, Tq, Tk, hd, hdv, seed):
-    """Seeded bf16 q, k, v and an output gradient on the card."""
-    import torch
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    n = lambda *s: torch.randn(s, generator=g, device=DEVICE).bfloat16()  # noqa: E731
-    return n(B, H, Tq, hd), n(B, KV, Tk, hd), n(B, KV, Tk, hdv), \
-        n(B, H, Tq, hdv)
-
-
-def _rel_peak(got, want) -> float:
-    """max |got - want| over the peak of |want|."""
-    d = float((got.float() - want.float()).abs().max())
-    return d / max(float(want.float().abs().max()), 1e-30)
-
-
-def phase_lm_train_kernel_parity() -> None:
-    """flash_attention_bwd against flash_attention_bwd_ref on the card, in
-    fp32 over the same inputs (q, k, v, the output gradient, and the
-    forward kernel's output and log-sum-exps), at the training attention
-    shape of each family (bf16, the wgmma body) and at danube's beside
-    each input the CUDA-core body takes: dq, dk and dv each within BWD_TOL
-    bf16 roundings of its peak (BWD_TOL_FP32 of it in fp32), on the body
-    ``bwd_body`` names. A witness reads the rounding scale: autograd
-    through the plain version with the same inputs, against the same fp32
-    gradients. A second call must give the same bits. Then the scan's
-    backward the same way (``_scan_bwd_parity``)."""
-    import importlib
-
-    import torch
-    from repro_torch.kernels import ref
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    cases = []
-    shapes = [(*c, torch.bfloat16, False) for c in _train_attention_shapes()]
-    for i, (label, B, H, KV, Tq, Tk, hd, hdv, causal, window, chunk, dtype,
-            offset) in enumerate(shapes + _simt_attention_shapes()):
-        q, k, v, do = (x.to(dtype) for x in _bwd_inputs(
-            B, H, KV, Tq, Tk, hd, hdv, seed=100 + i))
-        scale = 1.0 / math.sqrt(hd)
-        kw = dict(causal=causal, window=window, chunk=chunk, scale=scale)
-        o, lse = fa._forward(q, k, v, causal, window, chunk, scale,
-                             with_lse=True)
-        if offset:
-            q, k, v, o, do = (_off16(x) for x in (q, k, v, o, do))
-        expect = "simt" if offset or dtype == torch.float32 \
-            or (hd, hdv) not in fa._WG_HEAD_DIMS else "wgmma"
-        tol = BWD_TOL * 2.0 ** -8 if dtype == torch.bfloat16 else BWD_TOL_FP32
-        before = dict(fa.flash_attention_bwd.launches_by_body)
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        body = [b for b, n in fa.flash_attention_bwd.launches_by_body.items()
-                if n != before[b]]
-        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                           o.float(), lse, do.float(), **kw)
-        # the witness: autograd through the plain version, the inputs' type
-        # in and out
-        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        ref.flash_attention_ref(*leaves, **kw).backward(do)
-        sync()
-        errs = [_rel_peak(g, w) for g, w in zip(got, want)]
-        witness = [_rel_peak(x.grad, w) for x, w in zip(leaves, want)]
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
-        shape = [B, H, KV, Tq, Tk, hd, hdv]
-        cases.append({"case": label, "shape": shape, "causal": causal,
-                      "window": window, "chunk": chunk, "type": str(dtype),
-                      "rows_off_16_bytes": offset, "body": body,
-                      "rel_err_dq_dk_dv": errs,
-                      "witness_rel_err_dq_dk_dv": witness,
-                      "bit_identical_second_call": same})
-        check(finite, f"flash_attention_bwd {label}: non-finite gradient")
-        check(all(e <= tol for e in errs),
-              f"flash_attention_bwd {label} {shape}: relative errors {errs} "
-              f"past {tol:.3g} of the peak; the plain version in "
-              f"{dtype} reads {witness}")
-        check(same, f"flash_attention_bwd {label}: a second call differs")
-        check(body == [expect], f"flash_attention_bwd {label}: ran {body}, "
-              f"not the {expect} body")
-        del q, k, v, do, o, lse, got, again, want, leaves
-        torch.cuda.empty_cache()
-    scan_cases = _scan_bwd_parity()
-    emit({"phase": "lm_train_kernel_parity",
-          "cases": len(cases) + len(scan_cases),
-          "tolerance": f"max |kernel - plain fp32| <= {BWD_TOL} x 2**-8 x "
-                       f"peak (bf16), {BWD_TOL_FP32} x peak (fp32), for "
-                       f"each of dq, dk, dv; for rwkv6_scan_bwd the same "
-                       f"for dr, dk, dv (r's type) and {BWD_TOL_FP32} x "
-                       f"peak for dw, du, dstate (fp32)",
-          "results": cases, "scan_results": scan_cases})
-
-
-# rwkv6_scan_bwd against rwkv6_scan_bwd_ref: (label, B, H, T, K, V, type,
-# a given state and final-state cotangent, decay, rows off 16 bytes, the
-# body ``scan_bwd_body`` must pick: "mma" for bf16 at K 64 with V a
-# multiple of 16 up to 128 and aligned rows, "simt" otherwise).
-# decay None: the model's range, w_log = -exp(clamp(N(-1, 1.5), -12, 2));
-# "boundary": that, with the clamp's floor -e**2 on tokens 32..95 (across
-# the first chunk boundary); "subchunk": the floor on tokens 8..23 (across
-# the mma body's first sub-chunk boundary); "floor": -e**2 everywhere
-SCAN_BWD_CASES = [
-    ("rwkv6-3b train", 1, 40, TRAIN_T, 64, 64, "bfloat16", False, None, False,
-     "mma"),
-    ("ragged T", 1, 40, 2000, 64, 64, "bfloat16", False, None, False, "mma"),
-    ("one chunk", 1, 40, 64, 64, 64, "bfloat16", False, None, False, "mma"),
-    ("short, one chunk", 2, 40, 37, 64, 64, "bfloat16", True, None, False,
-     "mma"),
-    ("state and cotangent", 2, 40, 300, 64, 64, "bfloat16", True, None, False,
-     "mma"),
-    ("floor across a boundary", 1, 40, 300, 64, 64, "bfloat16", True,
-     "boundary", False, "mma"),
-    ("floor everywhere", 1, 40, 300, 64, 64, "float32", True, "floor", False,
-     "simt"),
-    ("fp32", 1, 40, TRAIN_T, 64, 64, "float32", False, None, False, "simt"),
-    ("rows off 16 bytes", 1, 40, 2000, 64, 64, "bfloat16", True, None, True,
-     "simt"),
-    ("K 16, V 32", 2, 3, 200, 16, 32, "float32", True, None, False, "simt"),
-    ("K 32, V 96", 1, 3, 200, 32, 96, "bfloat16", True, None, False, "simt"),
-    # the widest values: 3 and 4 warps a state row in the row pass (192
-    # and 256 threads), its shared memory near the card's 227 KB at V 256
-    ("K 64, V 160", 1, 3, 200, 64, 160, "bfloat16", True, None, False, "simt"),
-    ("K 64, V 256", 1, 3, 200, 64, 256, "bfloat16", True, None, False, "simt"),
-    ("K 64, V 256, fp32", 1, 2, 130, 64, 256, "float32", True, "boundary",
-     False, "simt"),
-    ("K 16, V 256", 2, 3, 200, 16, 256, "float32", True, None, False, "simt"),
-    # the mma body's edges: its narrowest and widest V (its shared memory
-    # 204 KB at V 128), one token, one sub-chunk, the floor across a
-    # sub-chunk boundary
-    ("mma, V 16", 2, 3, 200, 64, 16, "bfloat16", True, None, False, "mma"),
-    ("mma, V 128", 1, 3, 200, 64, 128, "bfloat16", True, None, False, "mma"),
-    ("mma, T 1", 2, 40, 1, 64, 64, "bfloat16", True, None, False, "mma"),
-    ("mma, T 16", 2, 40, 16, 64, 64, "bfloat16", True, None, False, "mma"),
-    ("floor across a sub-chunk boundary", 1, 40, 300, 64, 64, "bfloat16",
-     True, "subchunk", False, "mma"),
-]
-
-
-def _scan_inputs(B, H, T, K, V, dtype, with_state, decay, seed):
-    """Seeded r, k, v, w_log, u, state (or None), dy, ds_out (or None) on
-    the card; r/k/v/dy in ``dtype``, the rest fp32."""
-    import torch
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    n = lambda *s: torch.randn(s, generator=g, device=DEVICE)  # noqa: E731
-    r, k, v, dy = n(B, H, T, K), n(B, H, T, K), n(B, H, T, V), n(B, H, T, V)
-    w = -torch.exp(torch.clamp(n(B, H, T, K) * 1.5 - 1.0, -12.0, 2.0))
-    if decay == "boundary":
-        w[:, :, 32:96] = -math.exp(2.0)
-    elif decay == "subchunk":
-        w[:, :, 8:24] = -math.exp(2.0)
-    elif decay == "floor":
-        w.fill_(-math.exp(2.0))
-    u = n(H, K) * 0.3
-    state = n(B, H, K, V) if with_state else None
-    ds_out = n(B, H, K, V) if with_state else None
-    typ = getattr(torch, dtype)
-    return (r.to(typ), k.to(typ), v.to(typ), w, u, state, dy.to(typ), ds_out)
-
-
-def _scan_bwd_parity() -> list:
-    """rwkv6_scan_bwd against rwkv6_scan_bwd_ref on the card, in fp32 over
-    the same inputs (with the forward kernel's chunk states and decays), at
-    each of SCAN_BWD_CASES: dr, dk, dv within BWD_TOL bf16 roundings of
-    their peak (BWD_TOL_FP32 of it for fp32 inputs), dw, du and dstate
-    within BWD_TOL_FP32 of theirs. A witness reads the rounding scale:
-    autograd through rwkv6_scan_ref with the inputs' types, against the same
-    fp32 gradients. A second call must give the same bits, and both calls
-    must run the case's body (``launches_by_body``)."""
-    import importlib
-
-    import torch
-    from repro_torch.kernels import ref
-    rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
-    names = ("dr", "dk", "dv", "dw", "du", "dstate")
-    cases = []
-    for i, (label, B, H, T, K, V, dtype, with_state, decay,
-            offset, expect) in enumerate(SCAN_BWD_CASES):
-        r, k, v, w, u, state, dy, ds_out = _scan_inputs(
-            B, H, T, K, V, dtype, with_state, decay, seed=300 + i)
-        _, _, L, D = rs._forward(r, k, v, w, u, state)
-        if offset:
-            r, k, v, w, dy = (_off16(x) for x in (r, k, v, w, dy))
-        before = dict(rs.rwkv6_scan_bwd.launches_by_body)
-        got = rs.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_out, L, D)
-        again = rs.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_out, L, D)
-        ran = {b: n - before[b]
-               for b, n in rs.rwkv6_scan_bwd.launches_by_body.items()
-               if n != before[b]}
-        want = ref.rwkv6_scan_bwd_ref(r.float(), k.float(), v.float(), w, u,
-                                      state, dy.float(), ds_out)
-        # the witness: autograd through the plain scan, the inputs' types
-        leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u)]
-        s_leaf = None if state is None else state.clone().requires_grad_()
-        y, s = ref.rwkv6_scan_ref(*leaves, state=s_leaf)
-        torch.autograd.backward([y, s], [dy, torch.zeros_like(s)
-                                         if ds_out is None else ds_out])
-        sync()
-        witness_grads = [x.grad for x in leaves] + [
-            None if s_leaf is None else s_leaf.grad]
-        low = BWD_TOL * 2.0 ** -8 if dtype == "bfloat16" else BWD_TOL_FP32
-        tols = (low, low, low) + (BWD_TOL_FP32,) * 3
-        errs = {nm: _rel_peak(g, w_) for nm, g, w_ in zip(names, got, want)
-                if nm != "dstate" or state is not None}
-        witness = {nm: _rel_peak(g, w_) for nm, g, w_
-                   in zip(names, witness_grads, want) if g is not None}
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        types = [str(g.dtype) for g in got]
-        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
-        shape = [B, H, T, K, V]
-        cases.append({"case": label, "shape": shape, "type": dtype,
-                      "state_and_cotangent": with_state, "decay": decay,
-                      "rows_off_16_bytes": offset, "chunks": rs.n_chunks(T),
-                      "body": ran, "rel_err": errs, "witness_rel_err": witness,
-                      "grad_types": types, "bit_identical_second_call": same})
-        check(ran == {expect: 2}, f"rwkv6_scan_bwd {label}: ran {ran}, not "
-              f"the {expect} body twice")
-        check(finite, f"rwkv6_scan_bwd {label}: non-finite gradient")
-        bad = {nm: e for (nm, e), tol in zip(errs.items(), tols) if not e <= tol}
-        check(not bad, f"rwkv6_scan_bwd {label} {shape}: relative errors "
-              f"{bad} past {tols} of the peak; the plain version in "
-              f"{dtype} reads {witness}")
-        check(same, f"rwkv6_scan_bwd {label}: a second call differs")
-        check(types == [str(r.dtype)] * 3 + ["torch.float32"] * 3,
-              f"rwkv6_scan_bwd {label}: gradient types {types}")
-        del r, k, v, w, u, state, dy, ds_out, L, D, got, again, want, leaves
-        del s_leaf, y, s, witness_grads
-        torch.cuda.empty_cache()
-    return cases
 
 
 def _leaf_rel_l2(a, b) -> dict:
@@ -2481,221 +1903,6 @@ def phase_train_resume(arch_name: str, root: Path) -> None:
     check(not tmp.exists(), f"train_resume: {tmp} left behind")
 
 
-# flash_attention_bwd's timed shapes: danube's training call, and the
-# widest heads' (hd 128, hd 160) at B 1 x TRAIN_T: (arch, batch, what)
-TRAIN_KERNEL_SHAPES = (("h2o-danube-1.8b", TRAIN_BATCH, "train"),
-                       ("qwen2-vl-72b", 1, "timed only"),
-                       ("stablelm-12b", 1, "timed only"))
-
-
-def train_kernel_entries(timer, launches: int) -> list:
-    """flash_attention_bwd at each of TRAIN_KERNEL_SHAPES (causal, the
-    arch's heads, head dim and window; danube's is its training call, 4 x
-    2,048, H 32 / KV 8, hd 80, window 4,096), seeded bf16 inputs and the
-    forward kernel's output and log-sum-exps: the kernel against its plain
-    version, the backward of autograd through the plain attention, and bf16
-    SDPA's backward (its forward and backward less its forward), with the
-    body that ran. ``launches``: the kernel's count on the training path."""
-    import importlib
-
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.models import get_arch
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    entries = []
-    for arch_name, B, call in TRAIN_KERNEL_SHAPES:
-        a = get_arch(arch_name)
-        H, KV, T, hd = a.n_heads, a.n_kv_heads, TRAIN_T, a.hd
-        q, k, v, do = _bwd_inputs(B, H, KV, T, T, hd, hd, seed=7)
-        scale = 1.0 / math.sqrt(hd)
-        kw = dict(causal=True, window=a.window, chunk=None, scale=scale)
-        o, lse = fa._forward(q, k, v, True, a.window, None, scale,
-                             with_lse=True)
-        fn = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
-        plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
-            q, k, v, o, lse, do, **kw)
-        before = dict(fa.flash_attention_bwd.launches_by_body)
-        got = fn()
-        body = [b for b, n in fa.flash_attention_bwd.launches_by_body.items()
-                if n != before[b]]
-        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                           o.float(), lse, do.float(), **kw)
-        err = max(float((g.float() - w).abs().max())
-                  for g, w in zip(got, want))
-        del got, want
-        lo, hi = _visible_keys(T, T, True, a.window, None)
-        pairs = B * H * int((hi - lo + 1).clip(min=0).sum())
-        # the five tile products (S, dP, dV, dK, dQ): 2.5x the forward's two
-        flops = 2 * pairs * (3 * hd + 2 * hd)
-        nbytes = (5 * B * H * T * hd + 4 * B * KV * T * hd) \
-            * q.element_size() + B * H * T * 4
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_OPS_PER_S)
-
-        # autograd through the plain attention: forward and backward, less
-        # the forward
-        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-
-        def plain_fb():
-            out = ref.flash_attention_ref(*leaves, **kw)
-            torch.autograd.grad(out, leaves, do)
-        plain_fwd = lambda: ref.flash_attention_ref(*leaves, **kw)  # noqa: E731
-        # bf16 SDPA with its GQA broadcast outside the timed call (danube's
-        # window 4,096 >= 2,048: the causal mask alone)
-        sq, sk, sv = (x.detach().clone().requires_grad_() for x in (
-            q, k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)))
-
-        def sdpa_fb():
-            out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
-                                                 scale=scale)
-            torch.autograd.grad(out, (sq, sk, sv), do)
-        sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            sq, sk, sv, is_causal=True, scale=scale)
-        autograd_plain_ms = timer.ms(plain_fb, reps=5) \
-            - timer.ms(plain_fwd, reps=5)
-        entries.append({
-            "name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/models/layers.py:163 (no TPU kernel: the "
-                        "reference differentiates sdpa through XLA)",
-            "launches": launches,
-            "max_abs_err": err,
-            "body": body,
-            "ms": timer.ms(fn, reps=10),
-            "call_ms": timer.ms(fn, hold=False, reps=10),
-            **_kernel_ms(fn),
-            "plain_ms": timer.ms(plain, reps=5),
-            "autograd_plain_ms": autograd_plain_ms,
-            "bound_ms": bound * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / BF16_TENSOR_OPS_PER_S else "operations",
-            "bound_fp32_ms": max(nbytes / HBM_BYTES_PER_S,
-                                 flops / FP32_OPS_PER_S) * 1e3,
-            "library_ms": timer.ms(sdpa_fb, reps=10)
-            - timer.ms(sdpa_fwd, reps=10),
-            "shape": {"arch": arch_name, "call": call, "B": B, "H": H,
-                      "KV": KV, "Tq": T, "Tk": T, "hd": hd, "hdv": hd,
-                      "causal": True, "window": a.window, "chunk": None,
-                      "types": ["torch.bfloat16"] * 2, "visible_pairs": pairs,
-                      "flops": flops, "bytes": nbytes}})
-        check(body == ["wgmma"], f"flash_attention_bwd at {arch_name}: ran "
-              f"{body}, not the wgmma body")
-        del q, k, v, do, o, lse, leaves, sq, sk, sv
-        torch.cuda.empty_cache()
-    return entries
-
-
-# the scan's backward's kernels by body, one launch each a call: A' the
-# chunks' adjoints, B' the carry back over the chunks, then the CUDA-core
-# body's C' row pass and C'' value pass, or the tensor-core body's chunk
-# products, and D' du
-SCAN_BWD_KERNELS = {
-    "simt": ("rwkv6_bwd_chunk_adjoint", "rwkv6_bwd_chunk_carry",
-             "rwkv6_bwd_rows", "rwkv6_bwd_values", "rwkv6_bwd_du"),
-    "mma": ("rwkv6_bwd_chunk_adjoint", "rwkv6_bwd_chunk_carry",
-            "rwkv6_bwd_chunk_mma", "rwkv6_bwd_du")}
-
-
-def scan_bwd_flops(B, H, T, K, V) -> tuple:
-    """The mma body's operations at a call, (on the tensor cores, on the
-    CUDA cores): per chunk of 64 tokens (four sub-chunks of 16), each
-    product counted once (not its bf16 hi/lo passes): Q's 10 tiles on or
-    below the diagonal, X1, X2 and X3 (L_c dy, G_C v, K G_C), and the 6
-    off-diagonal tiles of X, Y, P^T and P^T dY; on the CUDA cores the 4
-    diagonal tiles' 120 pairs (an exponent and 7 operations a pair and
-    column of K, 2 a pair and column of V), the tables (4 a row of the 192
-    and column), the epilogues (16 a token and column of K, 4 of V), and
-    the adjoint of phase A' (2 a token, k and v)."""
-    chunks = B * H * -(-T // 64)
-    tile = 2 * 16 * 16
-    tensor = chunks * (10 * tile * V + 3 * 2 * 64 * K * V
-                       + 6 * tile * (3 * K + V))
-    cores = chunks * (4 * 120 * (8 * K + 2 * V) + 192 * 4 * K
-                      + 64 * (16 * K + 4 * V)) + B * H * T * 2 * K * V
-    return tensor, cores
-
-
-def scan_bwd_kernel_entry(timer) -> dict:
-    """rwkv6_scan_bwd at rwkv6-3b's training call (1 x TRAIN_T, H 40, K =
-    V = 64, bf16 r/k/v/dy, no state), seeded inputs and the forward
-    kernel's chunk states and decays: the kernel (its tensor-core body,
-    as the training path runs it) against its plain version and the
-    backward of autograd through the plain scan. The caller adds
-    ``launches``, the kernel's count on the training path."""
-    import importlib
-
-    import torch
-    from repro_torch.kernels import ref
-    from repro_torch.models import get_arch
-    rs = importlib.import_module("repro_torch.kernels.rwkv6_scan")
-    a = get_arch(TRAIN_RWKV_ARCH)
-    B, H, T, K = 1, a.n_heads, TRAIN_T, a.d_model // a.n_heads
-    V = K
-    r, k, v, w, u, _, dy, _ = _scan_inputs(B, H, T, K, V, "bfloat16", False,
-                                           None, seed=7)
-    _, _, L, D = rs._forward(r, k, v, w, u, None)
-    fn = lambda: rs.rwkv6_scan_bwd(r, k, v, w, u, None, dy, None, L, D)  # noqa: E731
-    plain = lambda: ref.rwkv6_scan_bwd_ref(r, k, v, w, u, None, dy, None)  # noqa: E731
-    before = dict(rs.rwkv6_scan_bwd.launches_by_body)
-    got = fn()
-    body = next(b for b, n in rs.rwkv6_scan_bwd.launches_by_body.items()
-                if n != before[b])
-    want = ref.rwkv6_scan_bwd_ref(r.float(), k.float(), v.float(), w, u,
-                                  None, dy.float(), None)
-    err = max(float((g.float() - x).abs().max()) for g, x in zip(got, want))
-    del got, want
-    leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u)]
-
-    def plain_fb():
-        y, _ = ref.rwkv6_scan_ref(*leaves)
-        torch.autograd.grad(y, leaves, dy)
-    plain_fwd = lambda: ref.rwkv6_scan_ref(*leaves)  # noqa: E731
-    es, nC = r.element_size(), rs.n_chunks(T)
-    # each input read once (r, k, v, dy; w_log, u; the forward's chunk
-    # states and decays), each gradient written once
-    nbytes = B * H * T * (3 * K + V) * es + B * H * T * K * 4 + H * K * 4 \
-        + B * H * nC * (K * V + K) * 4 \
-        + B * H * T * (2 * K + V) * es + B * H * T * K * 4 + H * K * 4
-    # per token and state element: S's recurrence (3), S.dy (2), G's
-    # recurrence (3), G v (2), G^T k (2), S * G for dw (2)
-    flops = B * H * T * (14 * K * V + 8 * K + 4 * V)
-    tensor, cores = scan_bwd_flops(B, H, T, K, V)
-    ops_tensor = tensor / BF16_TENSOR_OPS_PER_S + cores / FP32_OPS_PER_S
-    bound_tensor = max(nbytes / HBM_BYTES_PER_S, ops_tensor)
-    bound_fp32 = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S)
-    autograd_plain_ms = timer.ms(plain_fb, reps=3) - timer.ms(plain_fwd, reps=3)
-    entry = {
-        "name": "rwkv6_scan_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
-        "replaces": "src/repro/models/layers.py:364 (no TPU kernel: the "
-                    "reference trains through decay_linear_attention, which "
-                    "XLA differentiates)",
-        "body": body,
-        "max_abs_err": err,
-        "ms": timer.ms(fn, reps=20),
-        "call_ms": timer.ms(fn, hold=False, reps=20),
-        **_kernel_ms(fn, expect=SCAN_BWD_KERNELS[body]),
-        "plain_ms": timer.ms(plain, reps=3),
-        "autograd_plain_ms": autograd_plain_ms,
-        # the body that ran: the mma body's products at the bf16 tensor
-        # rate and the rest at the fp32 rate, or the token walk in fp32
-        "bound_ms": (bound_tensor if body == "mma" else bound_fp32) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= (ops_tensor if body == "mma" else flops / FP32_OPS_PER_S)
-        else "operations",
-        "bound_tensor_ms": bound_tensor * 1e3,
-        "bound_fp32_ms": bound_fp32 * 1e3,
-        "library_ms": None,
-        "shape": {"arch": TRAIN_RWKV_ARCH, "call": "train", "B": B, "H": H,
-                  "T": T, "K": K, "V": V, "type": str(r.dtype),
-                  "state": False, "chunks": nC, "flops": flops,
-                  "flops_tensor": tensor, "flops_cuda_cores": cores,
-                  "bytes": nbytes}}
-    del r, k, v, w, u, dy, L, D, leaves
-    torch.cuda.empty_cache()
-    return entry
-
-
 def phase_planner() -> None:
     """One step plan of the Cobra session's planner facade under the port's
     default hardware table (one H100 SXM): the cell the minicpm3 phase
@@ -2795,150 +2002,69 @@ def phase_examples(root: Path) -> None:
           f"train_lm: loss {tr['first_loss']} -> {tr['last_loss']}")
 
 
-def _busy_union_ms(prof) -> float:
-    """The union of the intervals in which a ``torch.profiler`` trace saw
-    the card run a kernel, copy or fill, in ms (each instant counted once
-    however the trace nests them)."""
-    from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith("ProfilerStep"))
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    return busy_us / 1e3
-
-
-def _warm_profiler() -> None:
-    """A stand-in workload for a profiler's warm-up step: small kernels on
-    the card for ``TRACE_WARM_S`` seconds, so the kernels the traced step
-    then launches first are not the ones a trace misses (PERF.md section
-    7)."""
-    import torch
-    x = torch.zeros(1024, device=DEVICE)
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < TRACE_WARM_S:
-        for _ in range(64):
-            x.add_(1.0)
-        sync()
-
-
-def _kernel_name(name: str) -> str:
-    """A device event's name without its signature: ``void f<64>(...)``
-    reads ``f<64>``."""
-    import re
-    return re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", name)
-
-
-def _trace_whole(prof, calls: int, expect: tuple = ()):
-    """The one wholeness check of a ``torch.profiler`` trace of ``calls``
-    calls after a warm-up step (a trace can miss the kernels launched
-    first in it, late in a long process, whole calls): ``(counts,
-    faults)``, the trace's device events counted by ``_kernel_name`` (less
-    the profiler's ``ProfilerStep#`` markers, which take no device time),
-    and what keeps it from being whole: each piece of ``expect`` that no
-    name holds, and each name seen a count that is not a multiple of
-    ``calls`` (a call launches the same work each time). The trace is
-    whole where it has counts and no faults."""
-    from torch.autograd import DeviceType
-    counts = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA \
-                and not e.name.startswith("ProfilerStep"):
-            name = _kernel_name(e.name)
-            counts[name] = counts.get(name, 0) + 1
-    faults = [f"missing {x}" for x in expect if not any(x in n for n in counts)]
-    faults += [f"{n} x{c}" for n, c in counts.items() if c % calls]
-    return counts, faults
+def _by_kind(events, calls: int = 1) -> dict:
+    """The device ms a call of a trace's activities, by the harness's
+    pieces (``bench.tracing``): the port's hand-written LM kernels, cuBLAS's
+    products, and the rest (the eager ops, copies and fills, the relational
+    kernels); overlapping activities each count in full. ``top_ms`` names
+    the five that took most (``breakdown``), so the split can be read and
+    corrected."""
+    from bench.tracing import GEMM, HAND_WRITTEN, breakdown, is_eager, time_in
+    top = breakdown([{"name": "", "events": events}], top=5)["device_ops"]
+    return {"hand_written_ms": time_in(events, HAND_WRITTEN) * 1e3 / calls,
+            "gemm_ms": time_in(events, GEMM) * 1e3 / calls,
+            "rest_ms": sum(b - a for n, a, b in events if is_eager(n))
+            / 1e3 / calls,
+            "top_ms": [[n, t * 1e3 / calls] for n, t in top]}
 
 
 def _device_busy(fn, split: bool = False, expect: tuple = ()):
-    """``((fn(), wall seconds), device busy ms)``: one call under a
-    ``torch.profiler`` trace of the card's activity, ended by a
-    synchronize, after a warm-up step of small kernels (``_warm_profiler``;
-    ``fn`` runs once, as its caller's state needs, so the trace is not
-    tried again). Busy is None where the trace holds no device activity or
-    is not whole by ``_trace_whole`` with ``expect`` ("not measured").
-    With ``split``, also the device time by kind of activity
-    (``_device_ms_by_kind``), which then lists what keeps the trace from
-    being whole under "faults"."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        _warm_profiler()
-        prof.step()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        wall = time.perf_counter() - t0
-        prof.step()
-    _, faults = _trace_whole(prof, 1, expect)
-    busy = None if faults else (_busy_union_ms(prof) or None)
+    """``((fn(), wall seconds), device busy ms)``: one call under a trace
+    of the card's activity (``bench.tracing.Session``: opened over a
+    warm-up step of small kernels, ended by a synchronize; ``fn`` runs
+    once, as its caller's state needs, so the trace is not tried again).
+    Busy is None ("not measured") where the trace holds no device activity
+    or no kernel whose name holds a piece of ``expect``. With ``split``,
+    also the device time by kind (``_by_kind``), which then lists what
+    keeps the trace from being whole under "faults"."""
+    from bench.tracing import Session, busy_s, faults_of
+    trace = Session(DEVICE)
+    out = fn()
+    wall, events = trace.close()
+    faults = faults_of(events, 1, {}, False) + [
+        f"missing {x}" for x in expect
+        if not any(x in n for n, _, _ in events)]
+    busy = None if faults else (busy_s(events) * 1e3 or None)
     if split:
-        by_kind = _device_ms_by_kind(prof)
+        by_kind = _by_kind(events)
         if faults:
-            by_kind = {**(by_kind or {}), "faults": faults}
+            by_kind["faults"] = faults
         return (out, wall), busy, by_kind
     return (out, wall), busy
 
 
-# kinds of device activity in a trace, by a piece of the kernel's name
-# (first match wins); the rest is "other"
-_KINDS = (("attention_backward", "flash_bwd"), ("attention_forward", "flash_fwd"),
-          ("scan_backward", "rwkv6_bwd"), ("scan_forward", "rwkv6_"),
-          ("matmul", "gemm"), ("matmul", "cutlass"), ("matmul", "xmma"),
-          ("matmul", "nvjet"),
-          ("reduction", "reduce"), ("softmax_logsumexp", "softmax"),
-          ("embedding", "embedding"), ("copy_cast_fill", "copy"),
-          ("copy_cast_fill", "fill"), ("copy_cast_fill", "memcpy"),
-          ("copy_cast_fill", "memset"), ("elementwise", "elementwise"))
-
-
-def _device_ms_by_kind(prof):
-    """The device time of a trace's kernels, copies and fills summed by
-    kind (``_KINDS``), in ms, each kind's count beside it; overlapping
-    activities each count in full. The kind "other" also lists its five
-    largest names with their ms, so the split can be read and corrected."""
-    from torch.autograd import DeviceType
-    out, other = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name.startswith("ProfilerStep"):
-            continue
-        name = e.name.lower()
-        kind = next((k for k, piece in _KINDS if piece in name), "other")
-        ms, n = out.get(kind, (0.0, 0))
-        dt = (e.time_range.end - e.time_range.start) / 1e3
-        out[kind] = (ms + dt, n + 1)
-        if kind == "other":
-            other[e.name[:80]] = other.get(e.name[:80], 0.0) + dt
-    split = {k: {"ms": ms, "count": n} for k, (ms, n) in
-             sorted(out.items(), key=lambda kv: -kv[1][0])}
-    if "other" in split:
-        split["other"]["top"] = sorted(other.items(), key=lambda kv: -kv[1])[:5]
-    return split or None
-
-
 def _step_ms(fn, reps: int = 3, calls: int = 2):
-    """One model step's wall time and the device's busy time within it.
+    """One model step's (or hook call's) wall time and the device's busy
+    time within it.
 
     ``wall_ms``: host clock around the call and a synchronize (median of
     ``reps``), as a caller sees it. ``device_busy_ms``: the union of the
     intervals in which a ``torch.profiler`` trace of ``calls`` more calls
-    saw the card run a kernel, copy or fill (counted once however the
-    trace nests them), over ``calls``. As for ``_kernel_ms``, the
+    saw the card run a kernel, copy or fill (``bench.tracing.busy_s``),
+    over ``calls``, split by ``_by_kind`` in ``device_ms_by_kind``. The
     profiler's warm-up step runs ``fn`` for ``TRACE_WARM_S`` seconds, and
-    a trace is held only where ``_trace_whole`` finds it whole. After
-    ``TRACE_TRIES`` traces that are not, busy, the idle share and the
-    event count are None ("not measured") and ``trace_note`` gives the
-    last trace's faults. The idle share is the part of the wall time the
-    card ran nothing. The host's op events, which nothing here reads,
-    make parsing the trace of a host-bound prefill slow (zamba2's 34,000
-    ops a call: about a minute with the tries), but without them that
-    trace missed kernels in one run of two."""
+    a trace is held only where ``bench.tracing.faults_of`` finds every
+    name a multiple of ``calls`` (a call launches the same work each
+    time). After ``TRACE_TRIES`` traces that are not, the readings of the
+    trace are None ("not measured") and ``trace_note`` gives the last
+    trace's faults. The idle share is the part of the wall time the card
+    ran nothing. The host's op events, which nothing here reads, make
+    parsing the trace of a host-bound prefill slow (zamba2's 34,000 ops a
+    call: about a minute with the tries), but without them that trace
+    missed kernels in one run of two."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    from bench.tracing import (TRACE_TRIES, TRACE_WARM_S, busy_s,
+                               device_events, faults_of)
     fn()
     sync()
     wall = []
@@ -2961,14 +2087,16 @@ def _step_ms(fn, reps: int = 3, calls: int = 2):
                 fn()
             sync()
             prof.step()
-        counts, faults = _trace_whole(prof, calls)
-        busy = _busy_union_ms(prof) / calls
-        if counts and not faults and busy:
+        events = device_events(prof)
+        faults = faults_of(events, calls, {}, True)
+        busy = busy_s(events) * 1e3 / calls
+        if not faults and busy:
             return {"wall_ms": w, "device_busy_ms": busy,
                     "idle_share": max(0.0, 1.0 - busy / w),
-                    "device_events": sum(counts.values()) // calls}
+                    "device_events": len(events) // calls,
+                    "device_ms_by_kind": _by_kind(events, calls)}
     return {"wall_ms": w, "device_busy_ms": None, "idle_share": None,
-            "device_events": None,
+            "device_events": None, "device_ms_by_kind": None,
             "trace_note": f"{TRACE_TRIES} traces of {calls} calls, none "
                           f"whole: {faults[:8]} in the last"}
 
@@ -2993,385 +2121,6 @@ def _leaves(tree):
         yield tree
 
 
-# --------------------------------------------------------------------------
-# kernel timing at the main path's shapes
-# --------------------------------------------------------------------------
-
-class _Timer:
-    """Median time of one call, by CUDA events around each launch, with the
-    50 MB L2 flushed before every launch (the hooks find their inputs cold:
-    each call uploads fresh keys or deltas).
-
-    ``ms(fn)`` is the device's time: a sleep kernel holds the stream while
-    the host queues the whole call, so the events do not wait on the
-    wrapper's Python. ``ms(fn, hold=False)`` leaves the stream free, so the
-    events also see the host's launch overhead, as a caller does."""
-
-    HOST_LEAD_CYCLES = 1_000_000   # about 0.5 ms of the card's clock
-
-    def __init__(self):
-        import torch
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
-
-    def ms(self, fn, hold: bool = True, reps: int = TIMED_LAUNCHES,
-           clean: bool = False) -> float:
-        """``clean``: flush by reading the 128 MB buffer, not writing it, so
-        the L2 holds clean lines and the call's misses write nothing back
-        (the write flush leaves ~50 MB of dirty lines, whose write-back a
-        streaming call pays for as it evicts them)."""
-        import torch
-        # warm up: 3 calls, or fewer where they outlast TRACE_WARM_S (the
-        # plain versions that take a second)
-        t0, n = time.perf_counter(), 0
-        while n < 3 and (n == 0 or time.perf_counter() - t0 < TRACE_WARM_S):
-            fn()
-            n += 1
-        times = []
-        for _ in range(reps):
-            if clean:
-                torch.amax(self.flush)
-            else:
-                self.flush.zero_()
-            if hold:
-                torch.cuda._sleep(self.HOST_LEAD_CYCLES)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-
-def _kernel_ms(fn, reps: int = 5, expect: tuple = ()) -> dict:
-    """``{"kernel_ms": {name: ms}}``: device time per call of each kernel
-    that ``fn`` launches, by ``_kernel_name``, from a ``torch.profiler``
-    trace of ``reps`` calls. The profiler's warm-up step runs ``fn`` for
-    ``TRACE_WARM_S`` seconds before the ``reps`` calls it keeps, and a
-    trace is held only where ``_trace_whole`` finds it whole with
-    ``expect``. After ``TRACE_TRIES`` traces that are not, ``kernel_ms``
-    is None ("not measured") and ``kernel_ms_note`` gives the last
-    trace's counts and faults."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    fn()
-    sync()
-    for _ in range(TRACE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            t0, n = time.perf_counter(), 0
-            while n < 3 or time.perf_counter() - t0 < TRACE_WARM_S:
-                fn()
-                n += 1
-            sync()
-            prof.step()
-            for _ in range(reps):
-                fn()
-            sync()
-            prof.step()
-        counts, faults = _trace_whole(prof, reps, expect)
-        out = {}
-        for e in prof.key_averages():
-            if e.self_device_time_total > 0:
-                name = _kernel_name(e.key)
-                out[name] = (out.get(name, 0.0)
-                             + e.self_device_time_total / reps / 1e3)
-        if out and not faults:
-            return {"kernel_ms": out}
-    return {"kernel_ms": None,
-            "kernel_ms_note": f"{TRACE_TRIES} traces of {reps} calls, none "
-                              f"whole: device events by name in the last "
-                              f"{counts}; faults {faults}"}
-
-
-def phase_kernels(order_db, wilos_db, nav_exe, fold_lowered, launches):
-    import numpy as np
-    import torch
-    from repro_torch.compiled import exec as cexec
-    from repro_torch.kernels import ops, ref
-    from repro_torch.relational.table import host_to_device
-    timer = _Timer()
-    dev = torch.device(DEVICE)
-    orders, customer = order_db.table("orders"), order_db.table("customer")
-    keys = orders.column("o_customer_sk")
-    build_keys = customer.column("c_customer_sk")
-    m = N_CUSTOMERS
-    slots = ops.build_direct_table(build_keys, m)
-    rows = torch.arange(build_keys.shape[0], dtype=torch.int32, device=dev)
-    n = keys.shape[0]
-    found = torch.empty_like(keys)
-    # the W_F fold's deltas: t_state per task, as the loop walk hands them
-    fold_cl = next(iter(fold_lowered._loops.values()))
-    deltas_np = wilos_db.table("tasks").host("t_state").astype(np.float64)
-    deltas = torch.as_tensor(deltas_np.astype(np.float32), device=dev)
-    n_fold = deltas.shape[0]
-    segs = torch.zeros(n_fold, dtype=torch.int32, device=dev)
-    segs600 = torch.as_tensor(np.random.default_rng(600).integers(
-        0, 600, n_fold).astype(np.int32), device=dev)
-    sync()
-
-    def err(a, b):
-        sync()
-        return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
-
-    def library_probe():
-        return torch.where((keys >= 0) & (keys < m), slots[keys.clamp(0, m - 1)
-                                                           .long()], -1)
-
-    entries = []
-    # join_probe: the navigation probe, N = 2.88M keys over 100,000 slots
-    entries.append({
-        "name": "join_probe", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/join_probe.cu",
-        "replaces": "src/repro/kernels/join_probe.py:42",
-        "launches": launches["join_probe"],
-        "max_abs_err": err(ops.join_probe(keys, slots), ref.slot_gather_ref(keys, slots)),
-        "ms": timer.ms(lambda: ops.join_probe(keys, slots)),
-        "clean_ms": timer.ms(lambda: ops.join_probe(keys, slots), clean=True),
-        "call_ms": timer.ms(lambda: ops.join_probe(keys, slots), hold=False),
-        **_kernel_ms(lambda: ops.join_probe(keys, slots)),
-        # the probe's bytes with no gathers: a copy of the keys
-        "copy_ms": timer.ms(lambda: found.copy_(keys)),
-        "plain_ms": timer.ms(lambda: ref.slot_gather_ref(keys, slots)),
-        "bound_ms": (n * 4 + n * 4 + m * 4) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "library_ms": timer.ms(library_probe),
-        "shape": {"n": n, "m": m}})
-    # build_direct_table: the slot table of the navigation probe, once per epoch
-    entries.append({
-        "name": "build_direct_table", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/join_probe.cu",
-        "replaces": "src/repro/kernels/join_probe.py:26",
-        "launches": launches["build_direct_table"],
-        "max_abs_err": err(ops.build_direct_table(build_keys, m),
-                           ref.build_direct_table_ref(build_keys, m)),
-        "ms": timer.ms(lambda: ops.build_direct_table(build_keys, m)),
-        "clean_ms": timer.ms(lambda: ops.build_direct_table(build_keys, m),
-                             clean=True),
-        "call_ms": timer.ms(lambda: ops.build_direct_table(build_keys, m),
-                            hold=False),
-        **_kernel_ms(lambda: ops.build_direct_table(build_keys, m)),
-        "plain_ms": timer.ms(lambda: ref.build_direct_table_ref(build_keys, m)),
-        "bound_ms": (build_keys.shape[0] * 4 + m * 4) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "library_ms": timer.ms(lambda: torch.full((m,), -1, dtype=torch.int32,
-                                                  device=dev).index_put_(
-            (build_keys.long(),), rows)),
-        "shape": {"n": int(build_keys.shape[0]), "m": m}})
-    # segment_reduce: the accumulator fold, G = 1 over 2.88M integer deltas
-    entries.append({
-        "name": "segment_reduce", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
-        "replaces": "src/repro/kernels/segment_reduce.py:59",
-        "launches": launches["segment_reduce"],
-        "max_abs_err": err(ops.segment_reduce(deltas, segs, 1),
-                           ref.segment_reduce_ref(deltas, segs, 1)),
-        "ms": timer.ms(lambda: ops.segment_reduce(deltas, segs, 1)),
-        "clean_ms": timer.ms(lambda: ops.segment_reduce(deltas, segs, 1),
-                             clean=True),
-        "call_ms": timer.ms(lambda: ops.segment_reduce(deltas, segs, 1),
-                            hold=False),
-        **_kernel_ms(lambda: ops.segment_reduce(deltas, segs, 1)),
-        "plain_ms": timer.ms(lambda: ref.segment_reduce_ref(deltas, segs, 1)),
-        "bound_ms": max((n_fold * 4 + n_fold * 4 + 4) / HBM_BYTES_PER_S,
-                        n_fold / FP32_OPS_PER_S) * 1e3,
-        "bound_by": "bytes",
-        "library_ms": timer.ms(lambda: torch.zeros(1, dtype=torch.float32,
-                                                   device=dev).index_add_(
-            0, segs.long(), deltas)),
-        # at G = 1 the same answer as one torch.sum of the values: a floor
-        # that reads half the bytes (no segment ids)
-        "library_sum_ms": timer.ms(lambda: torch.sum(deltas)),
-        # the tiled route at G = 600 over the same values
-        "g600_ms": timer.ms(lambda: ops.segment_reduce(deltas, segs600, 600)),
-        "g600_max_abs_err": err(ops.segment_reduce(deltas, segs600, 600),
-                                ref.segment_reduce_ref(deltas, segs600, 600)),
-        "shape": {"n": n_fold, "g": 1}})
-    # the whole hook calls, host numpy in and out as the compiled tier runs
-    # them, and the same calls the hooks make one part at a time: what
-    # keeping the loop columns on the card (ROADMAP A9) would leave is the
-    # kernel call
-    nav_cl = next(iter(nav_exe.lower()._loops.values()))
-    probe_index = cexec._ProbeIndex(("timing",), customer, "c_customer_sk")
-    keys_np = orders.host("o_customer_sk")
-    cexec._probe(nav_cl, probe_index, keys_np)     # builds the slot table
-    dkeys = host_to_device(keys_np, dev, dtype=np.int32)
-    hits = ops.join_probe(dkeys, probe_index.direct)
-    dvals = host_to_device(deltas_np, dev, dtype=np.float32)
-    ids = torch.zeros(n_fold, dtype=torch.int32, device=dev)
-    total = ops.segment_reduce(dvals, ids, 1, op="sum")
-    sync()
-    hooks = {}
-    hooks["nav_probe_hook_ms"], hooks["nav_probe_split_ms"] = _split({
-        "whole": lambda: cexec._probe(nav_cl, probe_index, keys_np),
-        "host_to_device": lambda: host_to_device(keys_np, dev, dtype=np.int32),
-        "kernel": lambda: ops.join_probe(dkeys, probe_index.direct),
-        "device_to_host": lambda: hits.cpu().numpy()})
-    hooks["fold_sum_hook_ms"], hooks["fold_sum_split_ms"] = _split({
-        "whole": lambda: cexec._fold_sum(fold_cl, deltas_np, dev),
-        "host_to_device": lambda: host_to_device(deltas_np, dev,
-                                                 dtype=np.float32),
-        "zero_ids": lambda: torch.zeros(n_fold, dtype=torch.int32, device=dev),
-        "kernel": lambda: ops.segment_reduce(dvals, ids, 1, op="sum"),
-        "device_to_host": lambda: float(total[0].item())})
-    return entries, hooks
-
-
-def _split(parts, reps: int = 15):
-    """Host time of a whole hook call and of each of its parts (each ended
-    by a synchronize), taken in turns, ``reps`` rounds: the medians, and the
-    rest of the whole's time that no part accounts for."""
-    for fn in parts.values():
-        fn()
-    sync()
-    times = {name: [] for name in parts}
-    for _ in range(reps):
-        for name, fn in parts.items():
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            times[name].append((time.perf_counter() - t0) * 1e3)
-    out = {name: statistics.median(t) for name, t in times.items()}
-    whole = out.pop("whole")
-    out["rest"] = whole - sum(out.values())
-    return whole, out
-
-
-def _visible_keys(Tq: int, Tk: int, causal: bool, window, chunk):
-    """Per query row, the [lo, hi] range of keys the masks leave visible
-    (queries at the tail of the keys)."""
-    import numpy as np
-    qpos = np.arange(Tq) + (Tk - Tq)
-    lo = np.zeros(Tq, np.int64)
-    hi = np.full(Tq, Tk - 1, np.int64)
-    if causal:
-        hi = np.minimum(hi, qpos)
-    if window is not None:
-        lo = np.maximum(lo, qpos - window + 1)
-    if chunk is not None:
-        lo = np.maximum(lo, (qpos // chunk) * chunk)
-        hi = np.minimum(hi, (qpos // chunk) * chunk + chunk - 1)
-    return lo, hi
-
-
-def lm_kernel_entries(timer, attn, scan_launches, scan_shapes):
-    """flash_attention and rwkv6_scan at their serve-prefill and decode
-    shapes (inputs captured on the serve path: the prefill's first call and
-    the last decode step's last), each held to its plain version on the
-    same inputs. ``attn``: (arch, launches, shapes, timed) of each serve
-    phase through flash_attention, ``timed`` naming the attention each
-    captured call is ({"prefill": "self", "decode": "self"}; seamless's are
-    its encoder and its cross attention; {} for a phase not timed here)."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
-    entries = []
-
-    for arch_name, attn_launches, attn_shapes, call, what in [
-            (a, n, sh, c, w) for a, n, sh, timed in attn
-            for c, w in timed.items()]:
-        snap = _moved(attn_shapes[call], DEVICE)
-        q, k, v = snap["args"]
-        kw = snap["kwargs"]
-        B, H, Tq, hd = q.shape
-        KV, Tk, hdv = k.shape[1], k.shape[2], v.shape[3]
-        causal, window, chunk = (kw.get("causal", True), kw.get("window"),
-                                 kw.get("chunk"))
-        lo, hi = _visible_keys(Tq, Tk, causal, window, chunk)
-        pairs = B * H * int((hi - lo + 1).clip(min=0).sum())
-        n_keys = int(hi.max() - lo.min() + 1)
-        # q.k over hd and p.v over hdv, two operations a multiply-add; q
-        # read and the output written, each visible K and V row read once
-        flops = 2 * (hd + hdv) * pairs
-        nbytes = B * H * Tq * (hd + hdv) * q.element_size() \
-            + B * KV * n_keys * (hd + hdv) * k.element_size()
-        bound_fp32 = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S)
-        bound_tensor = max(nbytes / HBM_BYTES_PER_S,
-                           flops / BF16_TENSOR_OPS_PER_S)
-        # SDPA takes one type: the yardsticks get q and k/v in fp32, and in
-        # bf16 (which loses nothing of the serving cache's bf16 values), with
-        # the mask
-        kpos = torch.arange(Tk, device=DEVICE)[None, :]
-        mask = (kpos >= torch.as_tensor(lo, device=DEVICE)[:, None]) \
-            & (kpos <= torch.as_tensor(hi, device=DEVICE)[:, None])
-        if bool(mask.all()):   # nothing masked: SDPA's unmasked call
-            mask = None
-        qf = q.float()
-        kf, vf = k.float(), v.float()
-        if H != KV:   # the GQA broadcast, outside the timed call
-            kf = kf.repeat_interleave(H // KV, dim=1)
-            vf = vf.repeat_interleave(H // KV, dim=1)
-        qb, kb, vb = qf.bfloat16(), kf.bfloat16(), vf.bfloat16()
-        fn = lambda: ops.attention(q, k, v, **kw)          # noqa: E731
-        plain = lambda: ref.flash_attention_ref(q, k, v, **kw)   # noqa: E731
-        entries.append({
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:82",
-            "launches": attn_launches,
-            "max_abs_err": attention_close(
-                fn(), plain(), f"flash_attention at {arch_name} {call}"),
-            "ms": timer.ms(fn), "call_ms": timer.ms(fn, hold=False),
-            **_kernel_ms(fn),
-            "plain_ms": timer.ms(plain, reps=10),
-            # the kernel's products run on the tensor cores (bf16 q)
-            "bound_ms": bound_tensor * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / BF16_TENSOR_OPS_PER_S else "operations",
-            "bound_tensor_ms": bound_tensor * 1e3,
-            "bound_fp32_ms": bound_fp32 * 1e3,
-            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-                qf, kf, vf, attn_mask=mask, scale=kw.get("scale")), reps=10),
-            "library_bf16_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-                qb, kb, vb, attn_mask=mask, scale=kw.get("scale")), reps=10),
-            "shape": {"arch": arch_name, "call": call, "attention": what,
-                      "B": B, "H": H, "KV": KV, "Tq": Tq, "Tk": Tk, "hd": hd,
-                      "hdv": hdv, "causal": causal, "window": window,
-                      "chunk": chunk,
-                      "types": [str(q.dtype), str(k.dtype)],
-                      "cache_bf16_exact": bool(torch.equal(
-                          k, k.bfloat16().to(k.dtype))),
-                      "visible_pairs": pairs, "flops": flops,
-                      "bytes": nbytes}})
-        del snap, q, k, v, qf, kf, vf, qb, kb, vb, mask, fn, plain
-        torch.cuda.empty_cache()
-
-    for call in ("prefill", "decode"):
-        snap = _moved(scan_shapes[call], DEVICE)
-        r, k, v, w, u = snap["args"]
-        state = snap["kwargs"].get("state")
-        B, H, T, K = r.shape
-        V = v.shape[-1]
-        es = r.element_size()
-        nbytes = B * H * T * (2 * K + 2 * V) * es + B * H * T * K * 4 \
-            + H * K * 4 + B * H * K * V * 4 * (2 if state is not None else 1)
-        flops = B * H * T * (5 * K * V + 3 * K + 2 * V)
-        fn = lambda: ops.rwkv_scan(r, k, v, w, u, state=state)   # noqa: E731
-        plain = lambda: ref.rwkv6_scan_ref(r, k, v, w, u, state=state)  # noqa: E731
-        entries.append({
-            "name": "rwkv6_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
-            "replaces": "src/repro/kernels/rwkv6_scan.py:79",
-            "launches": scan_launches,
-            "max_abs_err": scan_close(fn(), plain(), f"rwkv6_scan at {call}"),
-            "ms": timer.ms(fn), "call_ms": timer.ms(fn, hold=False),
-            # the three phases at the prefill (A, B, C), C alone at decode
-            **_kernel_ms(fn),
-            "plain_ms": timer.ms(plain, reps=3 if T > 1 else 10),
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                            flops / FP32_OPS_PER_S) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / FP32_OPS_PER_S else "operations",
-            "bound_tensor_ms": max(nbytes / HBM_BYTES_PER_S,
-                                   flops / BF16_TENSOR_OPS_PER_S) * 1e3,
-            "library_ms": None, "library_bf16_ms": None,
-            "shape": {"call": call, "B": B, "H": H, "T": T, "K": K, "V": V,
-                      "type": str(r.dtype), "state": state is not None,
-                      "flops": flops, "bytes": nbytes}})
-    return entries
-
-
 def main() -> int:
     root = Path(__file__).resolve().parent
     src = root / "src"
@@ -3384,16 +2133,16 @@ def main() -> int:
         print("chip_smoke.py: CUDA is not available; this smoke run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(src))
-    # no TF32 anywhere: the plain versions and yardsticks run in full fp32
+    # the port; the kernels' tolerances (tests/_torch_cases.py); the
+    # harness's trace pieces (bench/tracing.py) under the checkout's root
+    sys.path[:0] = [str(src), str(root / "tests"), str(root)]
+    # no TF32 anywhere: the plain versions run in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
     smi = phase_device()
     phase_build()
-    phase_kernel_parity()
-    phase_lm_kernel_parity()
 
     from repro_torch.kernels import ops
     from repro_torch.programs import make_orders_customer_db
@@ -3407,69 +2156,35 @@ def main() -> int:
     # just after
     ops.reset_launch_counts()
     main_out = phase_main_path(order_db)
-    nav_exe = phase_navigation(order_db, main_out)
-    wilos_db, fold_lowered, fold_outs = phase_fold()
+    nav_loop = phase_navigation(order_db, main_out)
+    wilos_db, fold_outs, fold_loop = phase_fold()
     launches = ops.launch_counts()
     missing = [k for k in RELATIONAL if launches[k] == 0]
     check(not missing,
           f"kernels never launched on the main path: {missing}")
-
-    entries, hooks = phase_kernels(order_db, wilos_db, nav_exe, fold_lowered,
-                                   launches)
-    emit({"phase": "hooks", **hooks,
-          "note": "whole hook call: host keys/deltas to the card, kernel, "
-                  "result back to the host; *_split_ms: each part alone, "
-                  "rest = whole - parts"})
+    phase_hooks(order_db, wilos_db, nav_loop, fold_loop)
 
     # the serving loop and the cluster, each with its counts from 0
-    serving_launches = phase_serving(order_db, wilos_db, main_out, fold_outs)
-    cluster_launches = phase_cluster(wilos_db)
-    for e in entries:
-        e["launches_serving"] = serving_launches[e["name"]]
-        e["launches_cluster"] = cluster_launches[e["name"]]
-    del order_db, wilos_db, nav_exe, fold_lowered, fold_outs, main_out
+    phase_serving(order_db, wilos_db, main_out, fold_outs)
+    phase_cluster(wilos_db)
+    del order_db, wilos_db, fold_outs, main_out, nav_loop, fold_loop
 
-    # the LM serving paths, each with its counts from 0 (inside phase_serve);
-    # the kernels line times attention at the shapes of those named
-    self_attn = {"prefill": "self", "decode": "self"}
-    attn = [("h2o-danube-1.8b", *phase_serve(
-        "h2o-danube-1.8b", "flash_attention", "attention"), self_attn)]
-    scan_launches, scan_shapes = phase_serve("rwkv6-3b", "rwkv6_scan",
-                                             "rwkv_scan")
-    attn.append(("qwen2-vl-72b", *phase_serve(
-        "qwen2-vl-72b", "flash_attention", "attention",
-        layers=QWEN2_VL_LAYERS), self_attn))
-    attn.append(("minicpm3-4b", *phase_serve(
-        "minicpm3-4b", "flash_attention", "attention"), self_attn))
-    attn.append(("zamba2-1.2b", *phase_serve(
-        "zamba2-1.2b", "flash_attention", "attention"), {}))
-    attn.append(("seamless-m4t-large-v2", *phase_serve(
-        "seamless-m4t-large-v2", "flash_attention", "attention"),
-        {"prefill": "encoder", "decode": "cross"}))
-    attn.append(("llama4-scout-17b-a16e", *phase_serve(
-        "llama4-scout-17b-a16e", "flash_attention", "attention",
-        layers=LLAMA4_LAYERS), self_attn))
-    attn.append(("kimi-k2-1t-a32b", *phase_serve(
-        "kimi-k2-1t-a32b", "flash_attention", "attention",
-        layers=KIMI_LAYERS), {}))
-    missing = [k for k, n in [("rwkv6_scan", scan_launches)]
-               + [(f"flash_attention ({a})", n) for a, n, _, _ in attn]
-               if n == 0]
+    # the LM serving paths, each with its counts from 0 (inside phase_serve)
+    missing = []
+    for arch, kernel, entry, layers in SERVES:
+        if phase_serve(arch, kernel, entry, layers=layers) == 0:
+            missing.append(f"{kernel} ({arch})")
     check(not missing,
           f"kernels never launched on the serving paths: {missing}")
-    # training: the backward kernel's parity, then the loop, each with its
-    # counts from 0 (inside phase_train)
-    phase_lm_train_kernel_parity()
+    # training, each loop with its counts from 0 (inside phase_train)
     danube = phase_train(TRAIN_ARCH)
-    train_launches = danube["launches"]
-    check(train_launches["flash_attention_bwd"] > 0,
+    check(danube["launches"]["flash_attention_bwd"] > 0,
           "flash_attention_bwd never launched on the training path")
     phase_train_resume(TRAIN_ARCH, root)
     rwkv = phase_train(TRAIN_RWKV_ARCH, batch=TRAIN_RWKV_BATCH,
                        steps=TRAIN_RWKV_STEPS,
                        microbatch=TRAIN_RWKV_MICROBATCH)
-    rwkv_launches = rwkv["launches"]
-    check(rwkv_launches["rwkv6_scan_bwd"] > 0,
+    check(rwkv["launches"]["rwkv6_scan_bwd"] > 0,
           "rwkv6_scan_bwd never launched on the training path")
     # the same two under a sharding policy with remat
     remat = phase_train_remat(TRAIN_ARCH, TRAIN_BATCH, danube)
@@ -3489,20 +2204,12 @@ def main() -> int:
                       strategy="fsdp_tp_ep", layers=TRAIN_MOE_LAYERS)
     phase_planner()
     phase_examples(root)
-    timer = _Timer()
-    entries += lm_kernel_entries(timer, attn, scan_launches, scan_shapes)
-    entries += train_kernel_entries(timer,
-                                    train_launches["flash_attention_bwd"])
-    entries.append({**scan_bwd_kernel_entry(timer),
-                    "launches": rwkv_launches["rwkv6_scan_bwd"]})
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
-    emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -11,6 +11,8 @@ runs where only torch is installed::
   * ``segment_reduce``: exactly on integer-valued inputs, ``rtol=1e-5`` on
     random fp32 sums (the kernel sums in float32 in a fixed blocked order,
     the plain version in float64 rounded once);
+  * both at the compiled tier's sizes too, TPC-DS SF1 (2,880,404 orders
+    over 100,000 customers; 1 to 5,000 groups);
   * their edges: N = 4k + 1, 2, 3 and bases off 16 bytes (``t[1:]``, the
     scalar route over the same rows in the same order, so the same bits),
     fp32 sums bit-identical call after call (the ticket counter is left at
@@ -32,7 +34,9 @@ runs where only torch is installed::
     (stablelm-12b), and the head dims padded up to them (112, 144), in
     both bodies, at prefill (two K/V stages, and the one-stage 8-warp
     blocks at hd 160 over fp32), at split-key decode, over strided cache
-    views and rows off 16 bytes; and MLA's v head narrower than its q.k
+    views and rows off 16 bytes; at the serving shapes of each family
+    (a 4,500-token prefill, decode over a ragged 4,531-slot cache, bf16
+    and fp32 q over the fp32 cache); and MLA's v head narrower than its q.k
     head (hd 96, hdv 64; v a strided slice of the expanded latent), other
     narrower v widths (hd 88 and 96 on the tensor cores, 128 and 160 on
     the CUDA cores), and the refusal of a narrower v at another
@@ -59,18 +63,23 @@ runs where only torch is installed::
     peak (1e-4 of it in fp32), a second call bit-identical, the body
     ``bwd_body`` picks launched; the wgmma body's edges (hd 80 over ragged
     tiles, GQA groups of 1, 4 and 8, a chunk across tiles, causal Tq != Tk
-    both ways, T 4,096) and its per-body launch counts; the forward's
+    both ways, T 4,096) and its per-body launch counts; the training
+    attention of every family the card trains at its published heads
+    over 2,048 tokens, with 77-token tails; the forward's
     row log-sum-exps (single pass, split-key combine, CUDA-core body);
     training's backward through the wrappers: attention's and the scan's
     gradients from their kernels (one launch each way, a second backward
     bit-identical);
-  * ``rwkv6_scan_bwd`` against ``rwkv6_scan_bwd_ref`` on the same inputs:
-    training's T (2,048, 32 chunks), a ragged tail, one chunk, one token,
-    a given state with a final-state cotangent, the decay floor -e**2
-    within and across a chunk boundary, fp32, rows off 16 bytes, K 16 / 32
-    with V 32 / 96: dr, dk, dv within two bf16 roundings of their peak
-    (1e-4 of it in fp32), dw, du, dstate within 1e-4, the gradients' types
-    and layout, a second call bit-identical;
+  * ``rwkv6_scan_bwd`` against ``rwkv6_scan_bwd_ref`` on the same inputs,
+    over every case of ``SCAN_BWD_CASES`` (rwkv6-3b's 40 heads at
+    training's T among them, the model's range of decays) and of a grid of
+    decays drawn past the model's floor: training's T (2,048, 32 chunks),
+    a ragged tail, one chunk, one token, a given state with a final-state
+    cotangent, the decay floor -e**2 within and across a chunk boundary,
+    fp32, rows off 16 bytes, K 16 / 32 with V 32 / 96: dr, dk, dv within
+    two bf16 roundings of their peak (1e-4 of it in fp32), dw, du, dstate
+    within 1e-4, the gradients' types and layout, a second call
+    bit-identical, each on the body it names;
   * a scaled ``Server.generate`` on the card against the same server on
     the CPU (fp32 parameters: the same tokens, logits within 1e-3), for
     danube, rwkv6, qwen2-vl (M-RoPE) and minicpm3 (MLA); for
@@ -96,10 +105,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (ATTN_BWD_CASES, ATTN_BWD_TOL, ATTN_EXTRA,
-                          ATTN_KERNEL_TOL, ATTN_SWEEP, PROBE_CASES,
-                          RWKV_SWEEP, RWKV_TOL, SEGMENT_CASES, TORCH_DTYPES,
-                          attention_inputs, rwkv_inputs, t32)
+from _torch_cases import (ATTN_BWD_CASES, ATTN_EXTRA, ATTN_KERNEL_TOL,
+                          ATTN_SWEEP, BWD_TOL, PROBE_CASES, RWKV_STATE_TOL,
+                          RWKV_SWEEP, RWKV_TOL, SCAN_BWD_CASES, SEGMENT_CASES,
+                          TORCH_DTYPES, attention_inputs, rwkv_inputs,
+                          scan_bwd_inputs, t32)
 from repro_torch.api import CobraSession, OptimizerConfig, RuleSet
 from repro_torch.cluster import ClusterRuntime, ShardedDatabase
 from repro_torch.core import CostCatalog
@@ -119,6 +129,10 @@ fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
+# TPC-DS SF1: store_sales rows (the orders; the Wilos tasks at the same
+# count) and customer rows, the compiled tier's sizes on the card
+N_ORDERS, N_CUSTOMERS = 2_880_404, 100_000
+
 
 @pytest.fixture
 def cuda():
@@ -128,9 +142,20 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", sorted(PROBE_CASES))
-def test_join_probe_matches_plain(cuda, name):
-    probe, keys, key_space = PROBE_CASES[name]
+def _sf1_probe_case():
+    """P0's navigation probe at SF1: every order's customer key over the
+    customers' keys, permuted."""
+    rng = np.random.default_rng(11)
+    return (rng.integers(0, N_CUSTOMERS, size=N_ORDERS),
+            rng.permutation(N_CUSTOMERS), N_CUSTOMERS)
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(lambda name=name: PROBE_CASES[name], id=name)
+    for name in sorted(PROBE_CASES)]
+    + [pytest.param(_sf1_probe_case, id="sf1_orders_customer")])
+def test_join_probe_matches_plain(cuda, case):
+    probe, keys, key_space = case()
     probe, keys = t32(probe), t32(keys)
     slots = ops.build_direct_table(keys.to(cuda), key_space)
     got = ops.join_probe(probe.to(cuda), slots)
@@ -146,6 +171,7 @@ def test_duplicate_build_keys_keep_the_first_row(cuda):
     keys = t32([2, 4, 2, 4, 1])
     slots = ops.build_direct_table(keys.to(cuda), 8)
     got = ops.join_probe(t32([1, 2, 3, 4, 0]).to(cuda), slots)
+    assert torch.equal(slots.cpu(), ref.build_direct_table_ref(keys, 8))
     assert got.cpu().tolist() == [4, 0, -1, 1, -1]
 
 
@@ -161,11 +187,18 @@ def test_segment_reduce_matches_plain(cuda, name, op):
                                                          op=op))
 
 
-@pytest.mark.parametrize("groups", [1, 7, 600, 5000])
-def test_segment_reduce_random_fp32_sums(cuda, groups):
+@pytest.mark.parametrize("n,groups", [
+    (300_000, 1), (300_000, 7), (300_000, 600), (300_000, 5000),
+    # no rows, no groups, and the compiled tier's fold at SF1
+    (0, 4), (1000, 0), (5000, 1), (5000, 7), (100_000, 600),
+    (N_ORDERS, 1), (N_ORDERS, 7), (N_ORDERS, 600), (N_ORDERS, 5000)])
+def test_segment_reduce_random_fp32_sums(cuda, n, groups):
     rng = np.random.default_rng(groups)
-    vals = torch.as_tensor(rng.uniform(-1, 1, 300_000).astype(np.float32))
-    segs = t32(rng.integers(0, groups, 300_000))
+    vals = torch.as_tensor(rng.uniform(-1, 1, n).astype(np.float32))
+    segs = rng.integers(0, max(groups, 1), n)
+    if groups > 2:
+        segs[segs == 1] = 2                      # segment 1 stays empty
+    segs = t32(segs)
     got = ops.segment_reduce(vals.to(cuda), segs.to(cuda), groups)
     again = ops.segment_reduce(vals.to(cuda), segs.to(cuda), groups)
     torch.cuda.synchronize()
@@ -173,6 +206,17 @@ def test_segment_reduce_random_fp32_sums(cuda, groups):
     torch.testing.assert_close(got.cpu(),
                                ref.segment_reduce_ref(vals, segs, groups),
                                rtol=1e-5, atol=1e-5)
+    # positive sums: relative to the float64 sum alone
+    vals = torch.as_tensor(rng.uniform(0, 1, n).astype(np.float32))
+    got = ops.segment_reduce(vals.to(cuda), segs.to(cuda), groups)
+    torch.testing.assert_close(got.cpu(),
+                               ref.segment_reduce_ref(vals, segs, groups),
+                               rtol=1e-5, atol=0)
+    ints = torch.as_tensor(rng.integers(-50, 50, n).astype(np.float32))
+    for op in ref.SEGMENT_OPS:
+        got = ops.segment_reduce(ints.to(cuda), segs.to(cuda), groups, op=op)
+        assert torch.equal(got.cpu(), ref.segment_reduce_ref(
+            ints, segs, groups, op=op)), op
 
 
 def test_launches_are_counted_on_the_card_only(cuda):
@@ -200,13 +244,16 @@ def _view(a, offset, cuda):
 
 
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("n", [100_001, 100_002, 100_003, 2, 7])
-def test_join_probe_over_views_and_ragged_lengths(cuda, n, offset):
+@pytest.mark.parametrize("n,m", [
+    (100_001, 5000), (100_002, 5000), (100_003, 5000), (2, 5000), (7, 5000),
+    (N_ORDERS + 1, N_CUSTOMERS), (N_ORDERS + 2, N_CUSTOMERS),
+    (N_ORDERS + 3, N_CUSTOMERS)])
+def test_join_probe_over_views_and_ragged_lengths(cuda, n, m, offset):
     rng = np.random.default_rng(n + offset)
-    probe = rng.integers(-5, 5005, size=n).astype(np.int32)
-    keys = rng.permutation(5000).astype(np.int32)
+    probe = rng.integers(-5, m + 5, size=n).astype(np.int32)
+    keys = rng.permutation(m).astype(np.int32)
     dkeys = _view(keys, offset, cuda)
-    slots = ops.build_direct_table(dkeys, 5000)
+    slots = ops.build_direct_table(dkeys, m)
     got = ops.join_probe(_view(probe, offset, cuda), slots)
     assert build.aligned16(dkeys) == (offset == 0)
     torch.cuda.synchronize()
@@ -216,7 +263,8 @@ def test_join_probe_over_views_and_ragged_lengths(cuda, n, offset):
 
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("groups", [1, 7])
-@pytest.mark.parametrize("n", [300_001, 300_002, 300_003, 3])
+@pytest.mark.parametrize("n", [300_001, 300_002, 300_003, 3, N_ORDERS + 1,
+                               N_ORDERS + 2, N_ORDERS + 3])
 def test_segment_reduce_over_views_and_ragged_lengths(cuda, n, groups, offset):
     rng = np.random.default_rng(n + groups)
     ints = rng.integers(-50, 50, size=n).astype(np.float32)
@@ -229,7 +277,10 @@ def test_segment_reduce_over_views_and_ragged_lengths(cuda, n, groups, offset):
                                       op=op)
         assert torch.equal(got.cpu(), want), op
     got = ops.segment_reduce(_view(floats, offset, cuda), dsegs, groups)
-    # the same rows in the same order on the 16-byte and the scalar path
+    # the same bits back to back, and from the same rows in the same order
+    # on the 16-byte and the scalar path
+    assert torch.equal(got, ops.segment_reduce(_view(floats, offset, cuda),
+                                               dsegs, groups))
     assert torch.equal(got, ops.segment_reduce(_view(floats, 1 - offset, cuda),
                                                _view(segs, 1 - offset, cuda),
                                                groups))
@@ -249,9 +300,10 @@ def test_segment_reduce_sums_are_bit_identical_call_after_call(cuda):
     assert int(build.stream_counter(vals.device)[0]) == 0
 
 
-def test_kernels_on_two_streams_in_turn(cuda):
+@pytest.mark.parametrize("n", [500_000, N_ORDERS])
+def test_kernels_on_two_streams_in_turn(cuda, n):
     rng = np.random.default_rng(6)
-    vals = torch.as_tensor(rng.uniform(-1, 1, 500_000).astype(np.float32),
+    vals = torch.as_tensor(rng.uniform(-1, 1, n).astype(np.float32),
                            device=cuda)
     segs = torch.zeros(vals.shape[0], dtype=torch.int32, device=cuda)
     keys = torch.as_tensor(rng.permutation(50_000).astype(np.int32), device=cuda)
@@ -392,6 +444,19 @@ ATTN_TENSOR_CORE = [
     (1, 8, 2, 300, 300, 80, "float32", False, True, 128, None),
     (1, 8, 2, 300, 300, 80, "float32", True, True, None, 64),
     (2, 8, 2, 1, 700, 64, "bfloat16", False, True, None, None),
+    # danube's heads (H 32 / KV 8, hd 80) over its fp32 cache with and
+    # without bf16 values, and over bf16 K/V
+    (1, 32, 8, 300, 300, 80, "float32", False, False, 128, None),
+    (1, 32, 8, 300, 300, 80, "bfloat16", False, False, None, None),
+    (1, 32, 8, 1100, 1100, 80, "float32", True, False, 1024, None),
+    (1, 32, 8, 1100, 1100, 80, "float32", False, False, 1024, None),
+    # zamba2's shared block (H = KV = 32, hd 64) and llama4-scout (H 40 /
+    # KV 8, hd 128, chunk 8,192: inactive below 8,192 keys) at their serving
+    # prefill (4,500 tokens) and decode (over a ragged 4,531-slot cache)
+    (1, 32, 32, 4500, 4500, 64, "float32", False, False, None, None),
+    (4, 32, 32, 1, 4531, 64, "float32", False, False, None, None),
+    (1, 40, 8, 4500, 4500, 128, "float32", False, False, None, 8192),
+    (4, 40, 8, 1, 4531, 128, "float32", False, False, None, 8192),
 ]
 
 
@@ -426,6 +491,13 @@ ATTN_NON_CAUSAL = [
     (1, 4, 2, 300, 77, 64, "float32", False, False),
     (1, 8, 2, 200, 333, 128, "float32", False, False),
     (1, 8, 8, 130, 130, 64, "float32", True, True),
+    # seamless-m4t at its serving size: the encoder over 4 x 4,608 frames,
+    # the cross attention at prefill (Tq 4,500 < Tk 4,608) and at decode
+    # over the fp32 cross cache, holding bf16 values or not
+    (4, 16, 16, 4608, 4608, 64, "bfloat16", False, False),
+    (4, 16, 16, 4500, 4608, 64, "float32", True, False),
+    (4, 16, 16, 1, 4608, 64, "float32", True, False),
+    (4, 16, 16, 1, 4608, 64, "float32", False, False),
 ]
 
 
@@ -457,6 +529,23 @@ ATTN_WIDE = [
     (1, 4, 2, 100, 100, 112, "bfloat16", "float32", False, False, None),
     (1, 4, 2, 1, 200, 144, "bfloat16", "float32", False, False, None),
     (1, 4, 2, 70, 70, 144, "float32", "float32", False, False, 32),
+    # at their models' serving shapes: a 4,500-token prefill and decode over
+    # a ragged 4,531-slot random fp32 cache, bf16 q (the tensor cores, lo
+    # products taken) and fp32 q (the CUDA cores). hd 128: internlm2-20b
+    # (H 48, KV 8) and qwen2-vl-72b (H 64, KV 8); hd 160: stablelm-12b (H
+    # 32, KV 8), the one-stage 8-warp blocks over fp32
+    (1, 48, 8, 4500, 4500, 128, "bfloat16", "float32", False, False, None),
+    (1, 48, 8, 4500, 4500, 128, "float32", "float32", False, False, None),
+    (4, 48, 8, 1, 4531, 128, "bfloat16", "float32", False, False, None),
+    (4, 48, 8, 1, 4531, 128, "float32", "float32", False, False, None),
+    (1, 64, 8, 4500, 4500, 128, "bfloat16", "float32", False, False, None),
+    (1, 64, 8, 4500, 4500, 128, "float32", "float32", False, False, None),
+    (4, 64, 8, 1, 4531, 128, "bfloat16", "float32", False, False, None),
+    (4, 64, 8, 1, 4531, 128, "float32", "float32", False, False, None),
+    (1, 32, 8, 4500, 4500, 160, "bfloat16", "float32", False, False, None),
+    (1, 32, 8, 4500, 4500, 160, "float32", "float32", False, False, None),
+    (4, 32, 8, 1, 4531, 160, "bfloat16", "float32", False, False, None),
+    (4, 32, 8, 1, 4531, 160, "float32", "float32", False, False, None),
 ]
 
 
@@ -509,6 +598,12 @@ def _mla_inputs(cuda, B, H, Tq, Tk, q_dt, kv_dt, nope=64, rdim=32, vhd=64,
     (2, 40, 1, 900, "bfloat16", "float32"),     # decode: split keys
     (1, 4, 100, 100, "float32", "float32"),     # the CUDA-core body
     (2, 4, 1, 333, "float32", "float32"),
+    # minicpm3-4b's serving shapes (H = KV = 40): a 4,500-token prefill
+    # and decode over a ragged 4,531-slot cache, both bodies
+    (1, 40, 4500, 4500, "bfloat16", "float32"),
+    (4, 40, 1, 4531, "bfloat16", "float32"),
+    (1, 40, 4500, 4500, "float32", "float32"),
+    (4, 40, 1, 4531, "float32", "float32"),
 ])
 def test_flash_attention_mla_head_dims(cuda, B, H, Tq, Tk, q_dt, kv_dt):
     q, k, v = _mla_inputs(cuda, B, H, Tq, Tk, q_dt, kv_dt, seed=Tk)
@@ -681,7 +776,7 @@ def _assert_grads_close(got, want, like, dt):
         assert g.dtype == x.dtype and g.shape == x.shape
         peak = float(w.abs().max())
         err = float((g.float() - w.float()).abs().max())
-        assert err <= ATTN_BWD_TOL[dt] * peak + 1e-6, (err, peak)
+        assert err <= BWD_TOL[dt] * peak + 1e-6, (err, peak)
 
 
 @pytest.mark.parametrize("offset", [False, True])
@@ -825,7 +920,8 @@ def _scan_case(cuda, B, H, T, K, V, dt, with_state, seed=0, decay=None,
     assert y.dtype == args[0].dtype and s.dtype == torch.float32
     torch.testing.assert_close(y.float(), y0.float(), rtol=RWKV_TOL[dt],
                                atol=RWKV_TOL[dt])
-    torch.testing.assert_close(s, s_ref, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(s, s_ref, rtol=RWKV_STATE_TOL,
+                               atol=RWKV_STATE_TOL)
     return y, s
 
 
@@ -835,11 +931,14 @@ def test_rwkv6_scan_matches_plain(cuda, B, H, T, K, V, chunk, dt, with_state):
     _scan_case(cuda, B, H, T, K, V, dt, with_state, seed=T)
 
 
-@pytest.mark.parametrize("T,dt", [(45, "float32"), (1, "float32"),
-                                  (70, "bfloat16")])
-def test_rwkv6_scan_serving_shapes(cuda, T, dt):
-    # K = V = 64 (rwkv6-3b heads), ragged T, one-token decode from a state
-    _scan_case(cuda, 2, 3, T, 64, 64, dt, True, seed=T)
+@pytest.mark.parametrize("B,H,T,K,dt", [
+    (2, 3, 45, 64, "float32"), (2, 3, 1, 64, "float32"),
+    (2, 3, 70, 64, "bfloat16"), (2, 3, 45, 32, "float32"),
+    # rwkv6-3b's 40 heads: a 300-token prefill, one-token decode
+    (1, 40, 300, 64, "bfloat16"), (4, 40, 1, 64, "bfloat16")])
+def test_rwkv6_scan_serving_shapes(cuda, B, H, T, K, dt):
+    # K = V (64: rwkv6-3b's heads), ragged T, one-token decode from a state
+    _scan_case(cuda, B, H, T, K, K, dt, True, seed=T)
 
 
 def test_rwkv6_scan_extreme_decay_is_finite(cuda):
@@ -870,79 +969,89 @@ def test_rwkv6_scan_extreme_decay_across_a_chunk_boundary(cuda):
 
 
 # the backward kernel against rwkv6_scan_bwd_ref in fp32: dr, dk, dv within
-# two bf16 roundings of their peak (1e-4 of it for fp32 inputs), dw, du and
-# dstate (fp32) within 1e-4 of theirs; decay "boundary" puts the model's
-# floor -e**2 on tokens 32..95, across the first chunk boundary, "subchunk"
-# on tokens 8..23, across the mma body's first sub-chunk boundary. Each
-# case also names the body it must run: the mma body for bf16 at K 64 with
-# V a multiple of 16 up to 128 and rows 16-byte aligned, simt otherwise
-SCAN_BWD_TOL = {"bfloat16": 2 * 2.0 ** -8, "float32": 1e-4}
-
-
-def _scan_bwd_body(K, V, dt, offset):
-    return "mma" if dt == "bfloat16" and K == 64 and V % 16 == 0 \
-        and V <= 128 and not offset else "simt"
-
-
-@pytest.mark.parametrize("B,H,T,K,V,dt,with_state,decay,offset", [
-    (1, 4, 2048, 64, 64, "bfloat16", False, None, False),   # training's T
-    (1, 4, 2000, 64, 64, "bfloat16", False, None, False),   # ragged tail
-    (2, 3, 64, 64, 64, "bfloat16", True, None, False),      # one chunk
-    (2, 3, 37, 64, 64, "bfloat16", True, None, False),
-    (2, 3, 1, 16, 16, "float32", True, None, False),
-    (2, 3, 300, 64, 64, "bfloat16", True, None, False),
-    (1, 2, 300, 64, 64, "float32", True, "boundary", False),
-    (1, 2, 130, 64, 64, "float32", True, -7.38905609893065, False),
-    (1, 2, 2048, 64, 64, "float32", False, None, False),
-    (1, 4, 300, 64, 64, "bfloat16", True, None, True),      # rows off 16 B
-    (2, 3, 200, 16, 32, "float32", True, None, False),
-    (1, 3, 200, 32, 96, "bfloat16", True, None, False),     # 2 column warps
-    (1, 3, 200, 64, 160, "bfloat16", True, None, False),    # 3 column warps
-    (1, 3, 200, 64, 256, "bfloat16", True, None, False),    # 4 column warps
-    (1, 2, 130, 64, 256, "float32", True, "boundary", False),
-    (2, 3, 200, 16, 256, "float32", True, None, False),
-    (1, 2, 300, 64, 256, "bfloat16", True, None, True),     # rows off 16 B
+# BWD_TOL of their peak in r's type, dw, du and dstate (fp32) within its
+# fp32 limit, over every case of SCAN_BWD_CASES and of the grid below (the
+# same fields, inputs from scan_bwd_inputs; decay "wide" draws w_log past
+# the model's floor, as far as -exp(1.5 N(0, 1))). Each case names the body
+# it must run: the mma body for bf16 at K 64 with V a multiple of 16 up to
+# 128 and rows 16-byte aligned, simt otherwise
+SCAN_BWD_GRID = [
+    ("wide, training's T", 1, 4, 2048, 64, 64, "bfloat16", False, "wide",
+     False, "mma"),
+    ("wide, ragged tail", 1, 4, 2000, 64, 64, "bfloat16", False, "wide",
+     False, "mma"),
+    ("wide, one chunk", 2, 3, 64, 64, 64, "bfloat16", True, "wide", False,
+     "mma"),
+    ("wide, T 37", 2, 3, 37, 64, 64, "bfloat16", True, "wide", False, "mma"),
+    ("wide, K 16, V 16, T 1", 2, 3, 1, 16, 16, "float32", True, "wide",
+     False, "simt"),
+    ("wide, T 300", 2, 3, 300, 64, 64, "bfloat16", True, "wide", False,
+     "mma"),
+    ("fp32, floor across a boundary", 1, 2, 300, 64, 64, "float32", True,
+     "boundary", False, "simt"),
+    ("fp32, floor everywhere, T 130", 1, 2, 130, 64, 64, "float32", True,
+     "floor", False, "simt"),
+    ("wide, fp32, training's T", 1, 2, 2048, 64, 64, "float32", False, "wide",
+     False, "simt"),
+    ("wide, rows off 16 bytes", 1, 4, 300, 64, 64, "bfloat16", True, "wide",
+     True, "simt"),
+    ("wide, K 16, V 32", 2, 3, 200, 16, 32, "float32", True, "wide", False,
+     "simt"),
+    ("wide, K 32, V 96", 1, 3, 200, 32, 96, "bfloat16", True, "wide", False,
+     "simt"),                                   # 2 column warps
+    ("wide, K 64, V 160", 1, 3, 200, 64, 160, "bfloat16", True, "wide",
+     False, "simt"),                            # 3 column warps
+    ("wide, K 64, V 256", 1, 3, 200, 64, 256, "bfloat16", True, "wide",
+     False, "simt"),                            # 4 column warps
+    ("fp32, V 256, floor across a boundary", 1, 2, 130, 64, 256, "float32",
+     True, "boundary", False, "simt"),
+    ("wide, K 16, V 256", 2, 3, 200, 16, 256, "float32", True, "wide", False,
+     "simt"),
+    ("wide, V 256, rows off 16 bytes", 1, 2, 300, 64, 256, "bfloat16", True,
+     "wide", True, "simt"),
     # the mma body's edges: its narrowest and widest V, one token, one
     # sub-chunk, the floor across a sub-chunk boundary
-    (2, 3, 200, 64, 16, "bfloat16", True, None, False),
-    (1, 3, 200, 64, 128, "bfloat16", True, None, False),
-    (2, 3, 1, 64, 64, "bfloat16", True, None, False),
-    (2, 3, 16, 64, 64, "bfloat16", True, None, False),
-    (1, 2, 130, 64, 64, "bfloat16", True, "subchunk", False),
-])
-def test_rwkv6_scan_backward_matches_plain(cuda, B, H, T, K, V, dt,
-                                           with_state, decay, offset):
-    r, k, v, w, u, s0 = rwkv_inputs(B, H, T, K, V, seed=T + V,
-                                    decay=decay if isinstance(decay, float)
-                                    else None)
-    if decay == "boundary":
-        w[:, :, 32:96] = -np.exp(2.0)
-    elif decay == "subchunk":
-        w[:, :, 8:24] = -np.exp(2.0)
-    rng = np.random.default_rng(T + V + 1)
-    dy = rng.standard_normal((B, H, T, V))
-    ds = rng.standard_normal((B, H, K, V))
-    args = [_on(r, cuda, dt), _on(k, cuda, dt), _on(v, cuda, dt),
-            _on(w, cuda), _on(u, cuda)]
-    state = _on(s0, cuda) if with_state else None
-    ds_out = _on(ds, cuda) if with_state else None
-    _, _, L, D = rs._forward(*args, state)
-    args[:4] = [_on(x.cpu(), cuda, dt if i < 3 else "float32", offset)
-                for i, x in enumerate(args[:4])]
-    dy = _on(dy, cuda, dt, offset)
+    ("wide, mma, V 16", 2, 3, 200, 64, 16, "bfloat16", True, "wide", False,
+     "mma"),
+    ("wide, mma, V 128", 1, 3, 200, 64, 128, "bfloat16", True, "wide", False,
+     "mma"),
+    ("wide, mma, T 1", 2, 3, 1, 64, 64, "bfloat16", True, "wide", False,
+     "mma"),
+    ("wide, mma, T 16", 2, 3, 16, 64, 64, "bfloat16", True, "wide", False,
+     "mma"),
+    ("H 2, floor across a sub-chunk boundary", 1, 2, 130, 64, 64, "bfloat16",
+     True, "subchunk", False, "mma"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(SCAN_BWD_CASES + SCAN_BWD_GRID)),
+                         ids=[c[0] for c in SCAN_BWD_CASES + SCAN_BWD_GRID])
+def test_rwkv6_scan_backward_matches_plain(cuda, case):
+    # the forward kernel's chunk states and decays; with offset, r/k/v/w_log
+    # /dy one element into their buffers. Two calls on the same inputs:
+    # both on the named body, the second the same bits
+    (_, B, H, T, K, V, dt, with_state, decay, offset,
+     body) = (SCAN_BWD_CASES + SCAN_BWD_GRID)[case]
+    r, k, v, w, u, state, dy, ds_out = scan_bwd_inputs(
+        B, H, T, K, V, dt, with_state, decay, seed=300 + case, device=cuda)
+    _, _, L, D = rs._forward(r, k, v, w, u, state)
+    if offset:
+        r, k, v, dy = (_on(x.cpu(), cuda, dt, offset=True)
+                       for x in (r, k, v, dy))
+        w = _on(w.cpu(), cuda, offset=True)
+    args = [r, k, v, w, u]
     ops.reset_launch_counts()
     got = rs.rwkv6_scan_bwd(*args, state, dy, ds_out, L, D)
     again = rs.rwkv6_scan_bwd(*args, state, dy, ds_out, L, D)
     assert ops.launch_counts()["rwkv6_scan_bwd"] == 2
-    body = _scan_bwd_body(K, V, dt, offset)
     assert rs.rwkv6_scan_bwd.launches_by_body[body] == 2, \
         rs.rwkv6_scan_bwd.launches_by_body
     want = ref.rwkv6_scan_bwd_ref(*(x.float() for x in args), state,
                                   dy.float(), ds_out)
     torch.cuda.synchronize()
-    tols = [SCAN_BWD_TOL[dt]] * 3 + [SCAN_BWD_TOL["float32"]] * 3
+    tols = [BWD_TOL[dt]] * 3 + [BWD_TOL["float32"]] * 3
     for g, wnt, tol, typ in zip(got, want, tols,
-                                [args[0].dtype] * 3 + [torch.float32] * 3):
+                                [r.dtype] * 3 + [torch.float32] * 3):
         assert g.dtype == typ and torch.isfinite(g.float()).all()
         err = float((g.float() - wnt).abs().max())
         assert err <= tol * float(wnt.abs().max()) + 1e-30, (err, tol)

@@ -1,7 +1,8 @@
 """The rules the PyTorch port keeps, checked on its sources and entry points.
 
-  * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
-    any module of the reference package ``repro``;
+  * ``src/repro_torch``, ``chip_smoke.py`` and ``chip_kernel_ab.py``
+    import neither ``jax`` nor any module of the reference package
+    ``repro``;
   * the port mirrors the reference module for module: every port module
     has a reference module at the same relative path (``carry.py``, the
     kernel build module and the fused AdamW kernel's wrapper excepted: the
@@ -28,7 +29,8 @@ PORT_ONLY = {"carry.py", "kernels/build.py", "kernels/adamw.py"}
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_kernel_ab.py"]
 
 
 def imported_modules(path: Path):

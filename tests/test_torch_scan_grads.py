@@ -26,7 +26,8 @@ The same numpy inputs (fixed seeds) go through ``repro`` and
     floor -e**2 everywhere, across a chunk boundary and across a
     sub-chunk boundary;
   * ``rwkv6_scan.scan_bwd_body``, the choice between the two bodies, at
-    every shape of ``chip_smoke.SCAN_BWD_CASES`` and over a grid.
+    every shape of ``_torch_cases.SCAN_BWD_CASES`` (the on-card tests'
+    cases of the backward kernel) and over a grid.
 
 Tolerances, as a fraction of each compared tensor's peak magnitude: fp32
 1e-4 (fp32 sums in another order: the reference's ``lax.scan`` transpose
@@ -37,8 +38,6 @@ du and dstate, which stay fp32, at the fp32 limit.
 
 import importlib
 import math
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -48,7 +47,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as ref_ref  # noqa: E402
-from _torch_cases import rwkv_inputs  # noqa: E402
+from _torch_cases import SCAN_BWD_CASES, rwkv_inputs  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -526,9 +525,9 @@ def test_matrix_form_backward_equals_the_recurrence(T, V, with_state, decay):
 
 
 def _case_tensors(B, H, T, K, V, dtype, with_state, offset):
-    """Zero tensors laid out as chip_smoke's scan cases lay them out on the
-    card: r, k, v, w_log, dy (contiguous, or one element into a buffer
-    with ``offset``) and the state."""
+    """Zero tensors laid out as the on-card tests lay out SCAN_BWD_CASES:
+    r, k, v, w_log, dy (contiguous, or one element into a buffer with
+    ``offset``) and the state."""
     def make(width, typ):
         t = torch.zeros((B, H, T, width), dtype=typ)
         if not offset:
@@ -541,17 +540,10 @@ def _case_tensors(B, H, T, K, V, dtype, with_state, offset):
     return tensors, state
 
 
-def _chip_smoke():
-    root = str(Path(__file__).resolve().parents[1])
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    return importlib.import_module("chip_smoke")
-
-
-@pytest.mark.parametrize("case", range(len(_chip_smoke().SCAN_BWD_CASES)))
+@pytest.mark.parametrize("case", range(len(SCAN_BWD_CASES)))
 def test_scan_bwd_body_at_every_card_case(case):
     (label, B, H, T, K, V, dtype, with_state, _, offset,
-     expect) = _chip_smoke().SCAN_BWD_CASES[case]
+     expect) = SCAN_BWD_CASES[case]
     tensors, state = _case_tensors(B, H, min(T, 65), K, V, dtype, with_state,
                                    offset)
     aligned = all(build.rows16(t) for t in tensors) \
